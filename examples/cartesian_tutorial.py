@@ -9,8 +9,8 @@ The mental model in one paragraph: you write a Python function over
 3D fields; `@gtscript.stencil` parses it ONCE into a validated stencil
 IR (race rules, dtype resolution, extent analysis) and hands it to a
 backend -- `numpy` (the oracle that DEFINES the numerics), `debug`
-(plain loops, easiest to read), `jax` (XLA), or `pallas` (fused Mosaic
-TPU kernels with transparent XLA fallback).  All backends agree to
+(plain loops, easiest to read), `jax` (XLA), or `pallas` (Triton column
+kernels with a visible XLA fallback).  All backends agree to
 1e-12 on f64 by construction.
 """
 
@@ -91,8 +91,8 @@ print("cell 3: extent analysis says boundary(u) =", laplacian.field_info["u"].bo
 # Cell 4: temporaries + stage fusion.  Assigning to an undeclared name
 # creates a TEMPORARY field; the extent analysis computes the halo each
 # stage needs, and executors evaluate temporaries over the extended
-# region automatically (on the pallas backend they live in VMEM, never
-# touching HBM).  This is the canonical horizontal-diffusion pattern.
+# region automatically (in the column kernel, temporaries read only at
+# their own point stay in registers).  This is the canonical horizontal-diffusion pattern.
 # --------------------------------------------------------------------- #
 
 
@@ -163,9 +163,9 @@ print("cell 5: tridiagonal solve residual < 1e-12")
 
 # --------------------------------------------------------------------- #
 # Cell 6: the backend matrix.  The SAME definition runs on every
-# backend; numpy is the oracle, jax/pallas are the TPU product path.
-# (On a TPU machine, backend="pallas" compiles fused Mosaic kernels;
-# on CPU it runs the same kernels in interpret mode.)
+# backend; numpy is the oracle, jax/pallas are the product path.
+# (On a GPU, backend="pallas" compiles Triton column kernels; on the
+# CPU it runs the same kernels in interpret mode.)
 # --------------------------------------------------------------------- #
 
 def lap_defn(u: Field, lap: Field):

@@ -7,7 +7,7 @@ every step checks its result against the numpy oracle backend, and the
 compiled steps assert they actually took the kernel path.
 
 Run:  python examples/next_quickstart.py        (JAX_PLATFORMS=cpu to
-      force CPU; on a TPU box the kernels compile for real)
+      force CPU; on a GPU the kernels compile for real)
 """
 
 import os
@@ -62,7 +62,7 @@ def main():
     # ---- 2. backends: oracle vs compiled kernels ---- #
     ref = lap.with_backend(backends.numpy_oracle)(a)
     cur = pallas_bridge.FALLBACK_EVENTS.cursor()
-    fast = lap.with_backend("pallas")(a)  # fused Mosaic kernel (or interpret)
+    fast = lap.with_backend("pallas")(a)  # column kernel (or interpret)
     assert not pallas_bridge.FALLBACK_EVENTS.since(cur)
     np.testing.assert_allclose(fast.asnumpy(), ref.asnumpy(), rtol=1e-13)
     print("2. pallas == oracle, zero fallbacks")

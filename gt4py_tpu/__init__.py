@@ -1,18 +1,18 @@
-"""gt4py_tpu: a TPU-native Cartesian stencil framework.
+"""gt4py_tpu: a Cartesian stencil framework in JAX.
 
 A brand-new framework with the capabilities of GT4Py (GridTools for Python):
 a GTScript-style Python-embedded DSL for weather & climate stencils --
 parallel I/J axes, sequential FORWARD/BACKWARD K loops, relative offsets,
 intervals, horizontal regions, externals, data dimensions -- compiled through
 a small validated stencil IR with extent/halo analysis into JAX/XLA programs
-and hand-written Pallas TPU kernels.
+and Pallas column kernels (Triton route) for the GPU.
 
-Layer map (TPU-first redesign of the reference's architecture; see SURVEY.md):
+Layer map (a JAX redesign of the reference's architecture; see SURVEY.md):
 
     user API    gt4py_tpu.cartesian.gtscript  (@stencil, @function, Field, ...)
     frontend    Python AST -> StencilIR  (cartesian/frontend/)
     middle-end  validation + dtype inference + extent analysis (cartesian/analysis.py)
-    executors   numpy oracle | jax (XLA) | pallas (Mosaic TPU kernels)
+    executors   numpy oracle | jax (XLA) | pallas (Triton column kernels)
     runtime     StencilObject call machinery, storage allocators
     distributed parallel/ -- Mesh + shard_map halo exchange (net-new vs reference)
 """

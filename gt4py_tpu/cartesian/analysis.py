@@ -385,9 +385,10 @@ def compute_k_boundary_resolved(
     return k_boundary
 
 
-#: VPU-cycle weights per IR operation for the speed-of-light model
-#: (docs/performance.md).  ADD/SUB/MUL/select/compare pipeline at one
-#: lane-op; division and transcendentals run multi-pass on the v5e VPU.
+#: Operation weights per IR operation for the speed-of-light model
+#: (tools/sol_table.py).  ADD/SUB/MUL/select/compare count one operation;
+#: division and transcendentals count several (multi-instruction
+#: sequences on the GPU as well).
 _FLOP_WEIGHTS = {
     ir.BinaryOperator.ADD: 1,
     ir.BinaryOperator.SUB: 1,

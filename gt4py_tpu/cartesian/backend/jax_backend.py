@@ -1,10 +1,10 @@
-"""JAX/XLA executor: the TPU product path.
+"""JAX/XLA executor.
 
 The stencil IR is *traced* into an XLA program under ``jax.jit`` -- tracing
 makes interpretation free at runtime and lets XLA fuse whole PARALLEL
 sections into single kernels.  Sequential FORWARD/BACKWARD loops lower to
-``lax.fori_loop`` over K with dynamic plane slices (a ``lax.scan``/Pallas
-fast path exists in the pallas backend).
+``lax.scan`` over K planes (``lax.fori_loop`` with dynamic plane slices
+where the scan form does not apply).
 
 Semantics parity: identical statement ordering, explicit C-style dtype
 promotion and the same clipping rules as the numpy oracle backend, so
@@ -17,7 +17,6 @@ as a traced functional program instead of generated source.
 
 from __future__ import annotations
 
-import os
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -35,10 +34,6 @@ from gt4py_tpu.cartesian.analysis import (
 )
 from gt4py_tpu.cartesian.backend import register
 from gt4py_tpu.core.definitions import Extent
-
-#: one-shot latch for the wrong-values timing-knob warning
-_WARNED_NO_ROLL = False
-
 
 def _jax():
     config.ensure_jax_config()
@@ -89,11 +84,10 @@ def _phys_shape(logical_shape: Tuple[int, ...]) -> Tuple[int, ...]:
     """Logical (I, J, K, *dd) -> physical (K, I, J, *dd).
 
     The executor stores every buffer K-leading: serial-K scans slice
-    contiguous planes off axis 0 with no transposes, and whole-plane
-    elementwise ops put J on the TPU lane dimension (J is large) instead of
-    K (80 -> padded 128, 60% wasted lanes).  This is the reference's
-    'K-first' optimal-layout choice (storage/cartesian/layout_registry.py)
-    expressed as TPU tiling.
+    contiguous planes off axis 0 with no transposes, and J, the long
+    horizontal axis, is the contiguous one (coalesced accesses on the GPU).
+    This is the reference's 'K-first' layout choice
+    (storage/cartesian/layout_registry.py).
     """
     return (logical_shape[2], logical_shape[0], logical_shape[1]) + tuple(
         logical_shape[3:]
@@ -236,7 +230,7 @@ def _rewrite_section_for_planes(body, written, const_fields, backward: bool,
     # positions (the bridge's scan lowering does); deepcopy preserves the
     # aliasing, so the mutating rename below must visit each OBJECT once
     # -- a second visit would stack suffixes ('__out__carry[1]__xs[0]',
-    # bridge-tpuplan fuzz seed 10008) and the plane env has no such key
+    # bridge fuzz seed 10008) and the plane env has no such key
     seen: set = set()
     for stmt in body:
         cloned = _copy.deepcopy(stmt)
@@ -286,33 +280,6 @@ class JaxTracer:
     """Traces the stencil IR into jnp operations on an env of buffers."""
 
     serial_k_value = None  # set per-plane inside the lax.scan fast path
-    axis_offset = (0, 0)  # global (I, J) offset of this trace's domain (tiles)
-    no_scan = False  # disable the lax.scan fast path (inside pallas kernels)
-    global_domain = None  # full-domain sizes for region masks (tiles)
-    #: circular-J mode (mode-A periodic-J pallas kernels): every value spans
-    #: exactly the J domain (the full periodic circle) and J offsets are
-    #: lane *rolls* instead of halo-extended slices -- no 128-lane padding
-    #: waste on the VPU and no halo lanes in the tile DMA
-    circular_j = False
-    pltpu_roll = False  # lower rolls with the Mosaic-native primitive
-    mosaic = False  # tracing inside a real Mosaic kernel (not interpret/XLA)
-    #: mutable-reference mode (inside pallas kernels): env values are VMEM
-    #: Refs mutated by stores, not functionally-updated arrays -- Mosaic has
-    #: no dynamic_update_slice on values, and refs avoid copies anyway
-    ref_env = False
-    temp_refs: Optional[Dict[str, Any]] = None  # pre-allocated temp scratch
-    #: temps kept as SSA *values* even in ref-mode kernels (single-assign
-    #: PARALLEL temps): no VMEM scratch array, no store/load round trip --
-    #: Mosaic register-allocates them and frees dead values, so ~40-temp
-    #: stencils (the fused FV step) stop paying 2 VMEM touches per temp
-    #: per point and the tile planner can afford wider TI
-    value_temps: frozenset = frozenset()
-
-    #: temps stored as a SINGLE K plane of scratch (pallas kernels only:
-    #: serial loops, zero K offsets, write-first sections -- see
-    #: passes.plane_local_temps).  The K-size-1 meta routes every access
-    #: through the existing shape[2]==1 addressing (static K index 0).
-    plane_temps: frozenset = frozenset()
 
     def __init__(self, analysis: StencilAnalysis, meta: Dict[str, _FieldMeta], domain):
         if not _NATIVE_JNP:
@@ -328,23 +295,19 @@ class JaxTracer:
         """env: full 3D(+data) jnp buffers by name.  Returns updated env."""
         self.scalars = scalars
         # temporaries get metas up-front but buffers lazily: temps that live
-        # entirely inside one serial scan never touch HBM (the TPU analog of
-        # the reference's LocalTemporariesToScalars / K-cache passes,
+        # entirely inside one serial scan never touch device memory (the
+        # analog of the reference's LocalTemporariesToScalars / K-cache passes,
         # gtc/passes/oir_optimizations/{temporaries,caches}.py)
         for name, decl in self.stencil.temp_decls.items():
             ext = self.analysis.extents.alloc_extent(name)
-            if self.circular_j:
-                # the whole periodic circle is the temp's J footprint
-                ext = Extent(i=ext.i, j=(0, 0), k=ext.k)
-            plane = name in self.plane_temps
             shape = (
                 self.domain[0] - ext.i[0] + ext.i[1],
                 self.domain[1] - ext.j[0] + ext.j[1],
-                1 if plane else self.domain[2] - ext.k[0] + ext.k[1],
+                self.domain[2] - ext.k[0] + ext.k[1],
             ) + tuple(decl.data_dims)
             self.meta[name] = _FieldMeta(
                 shape=shape,
-                origin=(-ext.i[0], -ext.j[0], 0 if plane else -ext.k[0]),
+                origin=(-ext.i[0], -ext.j[0], -ext.k[0]),
                 dtype=np.dtype(decl.dtype),
                 dimensions=(True, True, True),
                 data_ndim=len(decl.data_dims),
@@ -377,55 +340,8 @@ class JaxTracer:
         return counts
 
     def _stmt_ext(self, stmt) -> Extent:
-        """Statement compute extent; circular-J evaluation covers the whole
-        circle exactly once, so the J extent collapses to zero."""
-        ext = self.analysis.extents.stmt_extent(stmt)
-        if self.circular_j:
-            ext = Extent(i=ext.i, j=(0, 0), k=ext.k)
-        return ext
-
-    def _roll_j(self, x, dj: int):
-        """Periodic J offset as a lane roll: out[..., j] = x[..., (j+dj)%nj]."""
-        import jax.numpy as jnp
-
-        if os.environ.get("GT4PY_TPU_TIMING_NO_ROLL_WRONG_VALUES"):
-            # PERF EXPERIMENT ONLY: no-op the roll to bound the
-            # lane-rotate share of a circular kernel's runtime.  The knob
-            # name carries the consequence and a loud warning fires every
-            # process so a leftover export cannot silently corrupt runs.
-            global _WARNED_NO_ROLL
-            if not _WARNED_NO_ROLL:
-                _WARNED_NO_ROLL = True
-                import warnings
-
-                warnings.warn(
-                    "GT4PY_TPU_TIMING_NO_ROLL_WRONG_VALUES is set: periodic"
-                    " J rolls are DISABLED and every circular stencil"
-                    " computes WRONG VALUES (timing experiment only)",
-                    stacklevel=2,
-                )
-            return x
-        if self.pltpu_roll:
-            from jax.experimental.pallas import tpu as pltpu
-
-            small = None
-            if self.mosaic and np.dtype(x.dtype).itemsize < 4:
-                # Mosaic has no sub-32-bit tpu.dynamic_rotate ("Rotate
-                # with non-32-bit data", found by the bf16 bench on
-                # chip): roll widened (exact -- rolls move, never round)
-                small = x.dtype
-                wide = (
-                    jnp.float32
-                    if np.dtype(x.dtype) in _F16_DTYPES
-                    else jnp.int32
-                )
-                x = x.astype(wide)
-            # pltpu.roll rejects negative shifts; the roll is circular, so
-            # wrap into [0, nj).
-            out = pltpu.roll(x, (-dj) % x.shape[2], 2)
-            return out.astype(small) if small is not None else out
-
-        return jnp.roll(x, -dj, axis=2)
+        """Statement compute extent."""
+        return self.analysis.extents.stmt_extent(stmt)
 
     def _temp_read_after(self, name: str, pos: Tuple[int, int]) -> bool:
         """Is the temporary read in any section at or after ``pos``
@@ -442,17 +358,7 @@ class JaxTracer:
 
         m = self.meta[name]
         env = dict(env)
-        if name in self.value_temps:
-            # SSA value: stays lazily absent -- the defining Assign's
-            # write_back materializes it (a full-cover write IS the
-            # value; reads-before-write see synthetic zeros regions)
-            return env
-        if self.ref_env:
-            ref = self.temp_refs[name]
-            ref[...] = jnp.zeros(ref.shape, dtype=m.dtype)
-            env[name] = ref
-        else:
-            env[name] = jnp.zeros(_phys_shape(m.shape), dtype=m.dtype)
+        env[name] = jnp.zeros(_phys_shape(m.shape), dtype=m.dtype)
         return env
 
     def _trace_loop(self, env, loop: ir.VerticalLoop, loop_index: int = 0):
@@ -472,7 +378,7 @@ class JaxTracer:
                 backward = loop.loop_order == ir.LoopOrder.BACKWARD
                 n = k1 - k0
 
-                if n > 1 and not self.no_scan:
+                if n > 1:
                     try:
                         env = self._trace_serial_scan(
                             env, section, (k0, k1), backward, (loop_index, si)
@@ -495,19 +401,6 @@ class JaxTracer:
 
                 if n == 1:
                     env = body(0, env)
-                elif self.ref_env:
-                    import jax.numpy as jnp
-
-                    # refs are mutated in place; carry only a dummy token.
-                    # int32 induction: an i64 loop index reaching a Mosaic
-                    # ref-view dynamic slice sends the lowering into a
-                    # convert_element_type recursion
-                    jax.lax.fori_loop(
-                        jnp.int32(0),
-                        jnp.int32(n),
-                        lambda i, c, _e=env: (body(i, _e), c)[1],
-                        jnp.int32(0),
-                    )
                 else:
                     env = jax.lax.fori_loop(0, n, body, env)
         return env
@@ -517,7 +410,7 @@ class JaxTracer:
     # FORWARD/BACKWARD sections lower to lax.scan over K-leading plane
     # stacks: reads of not-yet-written planes become pre-shifted scan
     # inputs, reads of already-written planes become scan carries, and the
-    # written planes are stacked scan outputs.  This is the TPU-native form
+    # written planes are stacked scan outputs.  This is the XLA form
     # of the reference's serial K loop (oir.VerticalLoop / the embedded
     # ScanOperator, reference: src/gt4py/next/embedded/operators.py:40-90):
     # per-level work is a fused whole-IJ-plane kernel and XLA pipelines the
@@ -819,27 +712,8 @@ class JaxTracer:
         raise TypeError(f"Unknown statement {type(stmt).__name__}")
 
     def _select(self, cond, t, f):
-        """``jnp.where`` with the Mosaic 16-bit select workaround.
-
-        Mosaic miscompiles vector selects whose operand is a
-        sublane-offset load of a (16, 128)-packed 16-bit tile: the
-        packed-group boundary row reads the wrong sublane (found on chip
-        by the bf16 fuzz leg, seed 2; the same program is correct in
-        interpret mode and with the offsets removed).  Selecting in f32
-        is exact and forces the unpacked (8, 128) layout."""
         import jax.numpy as jnp
 
-        t = jnp.asarray(t)
-        f = jnp.asarray(f)
-        if (
-            self.mosaic
-            and np.dtype(t.dtype) == np.dtype(f.dtype)
-            and np.dtype(t.dtype) in _F16_DTYPES
-        ):
-            small = t.dtype
-            return jnp.where(
-                cond, t.astype(jnp.float32), f.astype(jnp.float32)
-            ).astype(small)
         return jnp.where(cond, t, f)
 
     def _trace_assign(self, env, stmt: ir.Assign, ctx: _TraceCtx):
@@ -903,33 +777,6 @@ class JaxTracer:
                 mask0, jnp.broadcast_to(jnp.asarray(m, dtype=bool), ctx.shape())
             )
 
-        if self.ref_env:
-            # refs mutate in place; the loop carries only the active mask.
-            # Mosaic quirks: the carry must be i32 (an i1 vector carry
-            # fails to legalize scf.yield) and the exit test must be an
-            # i32 max (bool reduce_or lowers through an f64 proxy under
-            # global x64: "Only arrays with 32-bit element types can be
-            # converted to scalars")
-            def body_mask(mask_i32):
-                mask = mask_i32 > 0
-                ctx.masks.append(mask)
-                for s in stmt.body:
-                    self._trace_stmt(env, s, ctx)
-                ctx.masks.pop()
-                new_mask = jnp.logical_and(
-                    mask,
-                    jnp.broadcast_to(
-                        jnp.asarray(self._eval(env, stmt.cond, ctx)).astype(bool),
-                        ctx.shape(),
-                    ),
-                )
-                return new_mask.astype(jnp.int32)
-
-            jax.lax.while_loop(
-                lambda m: jnp.max(m) > 0, body_mask, mask0.astype(jnp.int32)
-            )
-            return env
-
         def cond_fn(carry):
             env_c, mask = carry
             return jnp.any(mask)
@@ -956,13 +803,12 @@ class JaxTracer:
         import jax.numpy as jnp
 
         dI, dJ, _ = self.domain
-        gI, gJ, _ = getattr(self, "global_domain", None) or self.domain
-        gi, gj = self.axis_offset
-        i_glob = (
-            gi + jnp.arange(ctx.ext.i[0], dI + ctx.ext.i[1], dtype=jnp.int32)
+        gI, gJ = dI, dJ
+        i_glob = jnp.arange(
+            ctx.ext.i[0], dI + ctx.ext.i[1], dtype=jnp.int32
         ).reshape(1, -1, 1)
-        j_glob = (
-            gj + jnp.arange(ctx.ext.j[0], dJ + ctx.ext.j[1], dtype=jnp.int32)
+        j_glob = jnp.arange(
+            ctx.ext.j[0], dJ + ctx.ext.j[1], dtype=jnp.int32
         ).reshape(1, 1, -1)
         mask = jnp.zeros((1, ctx.ni, ctx.nj), dtype=bool)
         for m in stmt.masks:
@@ -1012,11 +858,8 @@ class JaxTracer:
         meta = self.meta[name]
         buf = env.get(name)
         buf_missing = buf is None
-        if buf_missing:  # unwritten temporary (dead code or lazy value temp)
+        if buf_missing:  # unwritten temporary (dead code)
             if not for_write and isinstance(acc.offset, ir.CartesianOffset):
-                # produce the zeros REGION directly: a synthetic zeros
-                # VALUE must never be indexed with ref-style dynamic
-                # slices in kernel (ref-mode) tracing (fuzz seed 225)
                 (_, _, _), (ni, nj, nk) = self._region_spec(meta, acc.offset, ctx)
                 region = jnp.zeros((nk, ni, nj) + meta.shape[3:], dtype=meta.dtype)
                 if acc.data_index:
@@ -1031,15 +874,9 @@ class JaxTracer:
                 env[name] = jnp.zeros(_phys_shape(meta.shape), dtype=meta.dtype)
             return self._read_nonuniform_k(env, acc, ctx), None
 
-        roll_j = 0
-        if self.circular_j and off.j and meta.shape[1] != 1:
-            roll_j = off.j  # periodic wrap: a roll of the whole circle
-            off = ir.CartesianOffset(i=off.i, j=0, k=off.k)
-
         (i0, j0, k0), (ni, nj, nk) = self._region_spec(meta, off, ctx)
         data_shape = meta.shape[3:]
 
-        is_ref = self.ref_env and name not in self.value_temps
         dyn_k = not isinstance(k0, int)
         if buf_missing:
             # write path of a never-written buffer: the "old" region is
@@ -1050,23 +887,10 @@ class JaxTracer:
         elif not dyn_k:
             idx = (slice(k0, k0 + nk), slice(i0, i0 + ni), slice(j0, j0 + nj))
             region = buf[idx]
-        elif is_ref:
-            from jax.experimental import pallas as pl
-
-            # Mosaic memref slices need 32-bit indices
-            idx = (
-                pl.ds(jnp.asarray(k0, dtype=jnp.int32), nk),
-                slice(i0, i0 + ni),
-                slice(j0, j0 + nj),
-            )
-            region = buf[idx]
         else:
             starts = (k0, i0, j0) + (0,) * len(data_shape)
             sizes = (nk, ni, nj) + data_shape
             region = jax.lax.dynamic_slice(buf, starts, sizes)
-
-        if roll_j:
-            region = self._roll_j(region, roll_j)
 
         from gt4py_tpu.cartesian.analysis import try_static_int
 
@@ -1095,9 +919,6 @@ class JaxTracer:
         phys = _phys_shape(meta.shape)
 
         def write_back(buf, value):
-            if is_ref:
-                buf[idx] = value  # VMEM ref store
-                return buf
             if (
                 not acc.data_index
                 and not dyn_k
@@ -1105,8 +926,7 @@ class JaxTracer:
                 and value.dtype == meta.dtype
             ):
                 # full-cover write: the new value IS the buffer (no
-                # dynamic_update_slice copy -- Mosaic lowers the jaxpr
-                # directly, there is no later HLO pass to simplify it)
+                # dynamic_update_slice copy)
                 return value
             if buf is None:  # lazily-absent value temp, partial write
                 buf = jnp.zeros(phys, dtype=meta.dtype)
@@ -1128,8 +948,7 @@ class JaxTracer:
                     ].set(value)
                 value = full
             if not dyn_k:
-                # dynamic_update_slice, not .at[].set: the latter lowers to
-                # scatter, which Mosaic (pallas kernels) cannot compile
+                # dynamic_update_slice, not .at[].set (a scatter)
                 static_starts = (k0, i0, j0) + (0,) * len(data_shape)
                 return jax.lax.dynamic_update_slice(buf, value, static_starts)
             return jax.lax.dynamic_update_slice(buf, value, starts)
@@ -1142,9 +961,7 @@ class JaxTracer:
         meta = self.meta[acc.name]
         buf = env.get(acc.name)
         if buf is None:
-            # unwritten temporary (dead code): zeros region directly --
-            # the zeros VALUE must not be sliced with ref-style dynamic
-            # starts in kernel tracing (same class as fuzz seed 225)
+            # unwritten temporary (dead code): zeros region directly
             (_, _, _), (ni, nj, _) = self._region_spec(
                 meta, ir.CartesianOffset(), ctx
             )
@@ -1164,14 +981,6 @@ class JaxTracer:
             dk = jnp.asarray(self._eval(env, off.k, ctx)).astype(jnp.int32)
             if ctx.klevel is not None:
                 base = jnp.asarray(ok + ctx.klevel, dtype=jnp.int32)
-            elif self.ref_env:
-                # Mosaic cannot lower the (nk,) -> (nk, 1, 1) reshape
-                # ("unsupported shape cast"); broadcasted_iota along the
-                # leading dim is its native multi-dim iota form
-                kk0, _ = ctx.kslice
-                base = (ok + kk0) + jax.lax.broadcasted_iota(
-                    jnp.int32, (ctx.nk, ni, nj), 0
-                )
             else:
                 kk0, kk1 = ctx.kslice
                 base = (ok + jnp.arange(kk0, kk1, dtype=jnp.int32)).reshape(-1, 1, 1)
@@ -1181,33 +990,11 @@ class JaxTracer:
             kidx = jnp.clip(kval + ok, 0, SK - 1)
 
         kidx = jnp.asarray(kidx)
-        if kidx.ndim == 0 and not self.ref_env:
+        if kidx.ndim == 0:
             kidx = kidx.reshape(1, 1, 1)
         kidx = jnp.broadcast_to(kidx, (ctx.nk, ni, nj))
-        if self.ref_env:
-            # inside a Mosaic kernel: lax.gather lowers only for 2D
-            # operands and value-level dynamic_slice not at all, so build
-            # the K-gather as a select-scan over the column, loading each
-            # plane from the VMEM ref (refs DO take dynamic slice starts).
-            # K is the leading, untiled dim; the column is VMEM-resident
-            # in mode B, so this trades VPU selects for HBM traffic.
-            import jax
-            from jax.experimental import pallas as pl
-
-            def body(k, acc):
-                plane = buf[
-                    pl.ds(jnp.asarray(k, dtype=jnp.int32), 1),
-                    slice(i0, i0 + ni),
-                    slice(j0, j0 + nj),
-                ]
-                return self._select(kidx == k, jnp.broadcast_to(plane, acc.shape), acc)
-
-            out = jax.lax.fori_loop(
-                0, SK, body, jnp.zeros((ctx.nk, ni, nj), meta.dtype)
-            )
-        else:
-            block = buf[:, slice(i0, i0 + ni), slice(j0, j0 + nj)]
-            out = jnp.take_along_axis(block, kidx, axis=0)
+        block = buf[:, slice(i0, i0 + ni), slice(j0, j0 + nj)]
+        out = jnp.take_along_axis(block, kidx, axis=0)
 
         if acc.data_index:
             out = self._apply_data_index(env, out, acc, ctx)
@@ -1312,14 +1099,13 @@ class JaxTracer:
             if expr.axis == "K" and self.serial_k_value is not None:
                 return jnp.asarray(self.serial_k_value, dtype=dt)
             # physical (K, I, J) broadcasting
-            gi, gj = self.axis_offset
             if expr.axis == "I":
-                return (
-                    gi + jnp.arange(ctx.ext.i[0], dI + ctx.ext.i[1], dtype=dt)
+                return jnp.arange(
+                    ctx.ext.i[0], dI + ctx.ext.i[1], dtype=dt
                 ).reshape(1, -1, 1)
             if expr.axis == "J":
-                return (
-                    gj + jnp.arange(ctx.ext.j[0], dJ + ctx.ext.j[1], dtype=dt)
+                return jnp.arange(
+                    ctx.ext.j[0], dJ + ctx.ext.j[1], dtype=dt
                 ).reshape(1, 1, -1)
             if ctx.klevel is not None:
                 return jnp.asarray(ctx.klevel, dtype=dt)
@@ -1339,13 +1125,6 @@ class JaxTracer:
             if expr.op == ir.UnaryOperator.NOT:
                 return jnp.logical_not(v)
             if expr.op == ir.UnaryOperator.NEG:
-                if (
-                    self.mosaic
-                    and getattr(v, "ndim", 0) == 0
-                    and np.dtype(v.dtype) in _F16_DTYPES
-                ):
-                    # Mosaic scalar core: no 16-bit negf (exact round-trip)
-                    return jnp.negative(v.astype(jnp.float32)).astype(v.dtype)
                 return jnp.negative(v)
             return v
 
@@ -1361,23 +1140,6 @@ class JaxTracer:
                 left = left.astype(target)
             if right.dtype != target:
                 right = right.astype(target)
-            if self.mosaic and target in _F16_DTYPES:
-                if expr.op in _COMPARISON_OPS:
-                    # Mosaic v5e has no 16-bit cmpf ("Target does not
-                    # support this comparison"); f32 upcast is exact, and
-                    # the i1 result dtype is unchanged.
-                    left = left.astype(jnp.float32)
-                    right = right.astype(jnp.float32)
-                elif getattr(left, "ndim", 0) == 0 and getattr(right, "ndim", 0) == 0:
-                    # Mosaic's scalar core has no 16-bit float arith
-                    # ("failed to legalize arith.subf : bf16"); f32 compute
-                    # + round back equals the direct 16-bit op for
-                    # +,-,*,/ (24 >= 2*8+2 makes double rounding innocuous).
-                    return _apply_binop_jnp(
-                        expr.op,
-                        left.astype(jnp.float32),
-                        right.astype(jnp.float32),
-                    ).astype(target)
             return _apply_binop_jnp(expr.op, left, right)
 
         if isinstance(expr, ir.TernaryOp):
@@ -1392,27 +1154,6 @@ class JaxTracer:
             if len(args) > 1:
                 target = promote_dtypes(*[np.dtype(a.dtype) for a in args])
                 args = [a.astype(target) if a.dtype != target else a for a in args]
-            if self.mosaic and any(np.dtype(a.dtype) in _F16_DTYPES for a in args):
-                # Mosaic has no 16-bit math lowerings anywhere: vector
-                # transcendentals fail to legalize ("failed to legalize
-                # operation 'math.sin'" on vector<...bf16>) and the scalar
-                # core has no 16-bit float math at all.  Compute in f32 and
-                # round back once (XLA's own sub-f32 lowering does the
-                # same, so this matches the jax executor to <= 1 ulp).
-                out = _NATIVE_JNP[expr.func](
-                    *[
-                        a.astype(jnp.float32)
-                        if np.dtype(a.dtype) in _F16_DTYPES
-                        else a
-                        for a in args
-                    ]
-                )
-                small = promote_dtypes(*[np.dtype(a.dtype) for a in args])
-                if small in _F16_DTYPES and np.dtype(out.dtype) == np.dtype(np.float32):
-                    # float results round back; bool results (isnan/isinf/
-                    # isfinite) keep their dtype
-                    return out.astype(small)
-                return out
             return _NATIVE_JNP[expr.func](*args)
 
         raise TypeError(f"Cannot trace {type(expr).__name__}")
@@ -1424,26 +1165,6 @@ def _to_logical(buf, user_shape):
 
     buf = jnp.transpose(buf, (1, 2, 0) + tuple(range(3, buf.ndim)))
     return buf.reshape(user_shape)
-
-
-# 16-bit float dtypes needing Mosaic scalar-core f32 workarounds (no 16-bit
-# negf/cmpf/arith on the v5e scalar core).  Module-level so every
-# ``self.mosaic`` guard shares one definition -- round 2 shipped these guards
-# referencing an undefined name, which only on-chip tracing could catch.
-# The set itself lives in core.definitions (the shared dtype vocabulary).
-from gt4py_tpu.core.definitions import F16_DTYPES as _F16_DTYPES  # noqa: E402
-
-
-_COMPARISON_OPS = frozenset(
-    {
-        ir.BinaryOperator.EQ,
-        ir.BinaryOperator.NE,
-        ir.BinaryOperator.LT,
-        ir.BinaryOperator.LE,
-        ir.BinaryOperator.GT,
-        ir.BinaryOperator.GE,
-    }
-)
 
 
 def _apply_binop_jnp(op: ir.BinaryOperator, left, right):
@@ -1473,8 +1194,6 @@ def _apply_binop_jnp(op: ir.BinaryOperator, left, right):
 @register("jax")
 class JaxBackend:
     """Traced XLA executor.  Returns updated arrays for written fields."""
-
-    storage_device = "tpu"
 
     def __init__(self, analysis: StencilAnalysis, options: Optional[dict] = None):
         config.ensure_jax_config()  # x64 etc. before any tracing
@@ -1515,8 +1234,8 @@ class JaxBackend:
         halos of every field read with nonzero horizontal extent are filled
         from the opposite interior edge (width = that field's read extent).
         Models with periodic boundaries then need no explicit fill passes
-        between chained stencils; the pallas backend subsumes these fills
-        into the tile DMA (wrapped windows) at zero extra traffic."""
+        between chained stencils (the pallas backend fills the same way
+        before its kernels)."""
         dI, dJ, _ = domain
         ext = self.analysis.extents
         new_env = dict(env)
@@ -1553,7 +1272,7 @@ class JaxBackend:
 
     def _trace_env(self, metas, env, scalars, domain, periodic=()):
         """Execute the stencil on an env of physical buffers (overridable:
-        the pallas backend lowers to fused tile kernels here)."""
+        the pallas backend lowers to column kernels here)."""
         if periodic:
             env = self._periodic_fill_env(metas, env, domain, periodic)
         tracer = JaxTracer(self.analysis, dict(metas), tuple(domain))

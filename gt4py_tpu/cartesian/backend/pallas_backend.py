@@ -1,45 +1,38 @@
-"""Pallas (Mosaic TPU) backend: pipelined whole-stencil fused tile kernels.
+"""Pallas backend: stencils as column kernels on Pallas' Triton route.
 
-The entire stencil -- every vertical loop, including serial-K tridiagonal
-sweeps -- fuses into ONE Pallas kernel executed over a sequential grid of
-tiles with software-pipelined DMA:
+The design follows the reference's GPU backend (GridTools ``gt:gpu``):
 
-- **double-buffered input DMA**: while tile ``t`` computes, tile ``t+1``'s
-  halo-extended blocks stream HBM -> VMEM into the other buffer slot, and
-  tile ``t-1``'s results stream back VMEM -> HBM (guide: "Patterns: Double
-  Buffering"), hiding memory latency behind the VPU work;
-- **two tiling modes**:
-  - *K-tiled rows* (all-PARALLEL stencils): tiles span the full physical J
-    row, so lane-dim (128) DMA alignment never forces halo expansion, and
-    K is tiled to fit VMEM.  J halos cost zero extra traffic.  With
-    periodic J, eligible stencils switch to **circular-J mode**: the
-    window is exactly the J domain (the full periodic circle) and J
-    offsets become lane *rolls* -- values stay dJ lanes wide instead of
-    being padded to the next 128 multiple, cutting both VPU work and
-    read traffic (e.g. 512-wide instead of 640/768 at dJ=512).
-  - *IJ tiles* (stencils with serial-K loops): the full K column per tile
-    (sweep dependencies live in VMEM); I/J halos are expanded so DMA
-    starts land on the (8, 128) tiling Mosaic requires.
-- the shared IR tracer runs *inside the kernel* in mutable-ref mode on the
-  VMEM tiles (fori_loop for serial K), so temporaries never touch HBM --
-  the TPU equivalent of the reference's stage fusion + IJ/K software
-  caches (gtc/passes/oir_optimizations/{horizontal_execution_merging,
-  caches}.py),
-- written fields that are never read alias their input buffer
-  (``input_output_aliases``): no fresh-output splice traffic and halos are
-  preserved in place.  Read+written fields write through fresh outputs
-  spliced back by XLA (tile prefetch must never race a neighbor's store).
+- **Grid.**  A parallel grid of (BI, BJ) blocks tiles the IJ compute
+  domain.  BI and BJ are powers of two, J is the contiguous axis of the
+  physical (K, I, J) layout, and ragged domain edges are masked: every
+  load and store carries a bounds mask.  Blocks run in any order.
+- **K loop.**  Each program walks K itself in an in-kernel
+  ``lax.fori_loop`` (a *sweep*).  In FORWARD/BACKWARD sweeps the planes a
+  sweep reads behind itself are loop carries held in registers (the
+  K-cache); in PARALLEL sweeps K offsets are loads of shifted planes.
+- **Horizontal offsets** are masked loads of the shifted window straight
+  from device memory; L1/L2 supply the reuse.
+- **Temporaries** read only at the same point stay SSA values of the plane
+  and never touch memory.  The XLA path's inlining pass runs first, so
+  most horizontally-offset temporaries disappear into their readers.
+- **Stages.**  Blocks cannot see each other's writes inside one kernel, so
+  a statement that reads at a horizontal offset a field written earlier
+  in the same kernel (or writes one read so) starts a new kernel.  Fields
+  and temporaries crossing a stage boundary live in device memory.
+- **Scalars** are plain operands.
 
-Inputs/outputs use the executor's physical K-leading (K, I, J) layout;
-J rides the TPU lane dimension.  Stencils the kernel path cannot express
-(variable-K offsets, data dimensions, non-tileable domains, API fields
-written over extended unit extents) fall back to the XLA executor
-transparently.
+Which stencils take the kernel is one rule, the same on every platform
+(:func:`kernel_class` and :data:`KERNEL_CLASSES`); the rest run on the
+XLA executor through the visible fallback (``FALLBACK_EVENTS``,
+``config.warn_fallback``), as does any stencil the kernel cannot express
+or the Triton lowering refuses.  Interpret mode is used only on the CPU.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import dataclasses
+import os
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
@@ -50,147 +43,637 @@ from gt4py_tpu.cartesian.backend.jax_backend import (
     JaxBackend,
     JaxTracer,
     _FieldMeta,
+    _phys_shape,
 )
+from gt4py_tpu.core.definitions import F16_DTYPES, Extent
 from gt4py_tpu.core.events import EventLog
-
-
-def _f16_unpack_enabled() -> bool:
-    """Experimental: convert read-only 16-bit inputs to ONE f32 VMEM copy
-    per tile (valid only for the canonical f16-storage form).  Measured
-    r4: the copies' VMEM cost shrinks tile plans (bf16 vadv fell off the
-    kernel path) and the conversions did not pay for themselves on any
-    bench kernel -- default OFF, kept for experiments and fuzz coverage."""
-    return _env_os.environ.get("GT4PY_TPU_PALLAS_F16_UNPACK", "0") == "1"
 
 
 class _PallasIneligible(Exception):
     pass
 
 
-class _PlanOnlyDone(Exception):
-    """Raised by ``_pallas_trace(plan_only=True)`` right after the tile
-    plan is chosen -- carries the plan, skips kernel build/execution."""
-
-    def __init__(self, plan):
-        super().__init__("plan-only")
-        self.plan = plan
-
-
-#: (stencil_name, traceback_tail) per XLA fallback -- observability for
-#: tests asserting the kernel path covers the language (a bitwise-equal
-#: result alone cannot distinguish the paths).  Bounded; diff with
-#: FALLBACK_EVENTS.cursor()/.since() (trim-stable); .total is monotonic.
+#: (stencil_name, reason) per XLA fallback -- observability for tests
+#: asserting the kernel path ran (a bitwise-equal result alone cannot
+#: distinguish the paths).  Bounded; diff with FALLBACK_EVENTS.cursor() /
+#: .since() (trim-stable); .total is monotonic.
 FALLBACK_EVENTS: EventLog = EventLog()
 
-#: stencil_name -> last chosen tile plan (mode_a/circular/TI/TJ/TK) --
+#: stencil_name -> the last kernel plan (stages, sweeps, block shape) --
 #: lets tests assert WHICH kernel form ran, not just that results match
 LAST_PLAN: dict = {}
 
-
-import os as _env_os
-
-_VMEM_BUDGET = (
-    int(_env_os.environ.get("GT4PY_TPU_PALLAS_VMEM_MB", "14")) * 1024 * 1024
-)  # scratch + value-stack, below the 16MB core
-_SUBLANE = 8
-_LANE = 128
-#: conservative count of concurrently-live whole-tile values (override
-#: for perf experiments: the planner then admits bigger tiles and Mosaic
-#: errors out at compile if the guess was wrong)
-_LIVE_VALUES = int(_env_os.environ.get("GT4PY_TPU_PALLAS_LIVE_VALUES", "8"))
+#: Stencil classes (see :func:`kernel_class`) sent to the column kernel.
+#: Measured on an H100 SXM (see README "Measured performance"): the kernel
+#: wins where a serial-K sweep would otherwise be one XLA launch per level;
+#: all-PARALLEL stencils are left to XLA's own fusion.
+KERNEL_CLASSES = frozenset({"serial"})
+ALL_CLASSES = frozenset({"serial", "parallel"})
 
 
-def _os_env_trim() -> bool:
-    """Kill switch for the mode-A J-row tail trim (perf bisection)."""
-    return _env_os.environ.get("GT4PY_TPU_PALLAS_TRIM_J", "1") != "0"
+def kernel_class(stencil: ir.Stencil) -> str:
+    """``"serial"`` if any vertical loop is FORWARD/BACKWARD, else
+    ``"parallel"``."""
+    for loop in stencil.vertical_loops:
+        if loop.loop_order != ir.LoopOrder.PARALLEL:
+            return "serial"
+    return "parallel"
 
 
-def _sublane(dtype) -> int:
-    """Mosaic packs VMEM at (32/itemsize * 8, 128): f32/i32 -> (8, 128),
-    bf16/f16 -> (16, 128), i8/bool -> (32, 128).  DMA slice starts and
-    sizes on the second-minor dim must be multiples of this."""
-    return _SUBLANE * max(1, 4 // np.dtype(dtype).itemsize)
+def _pow2_ceil(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
 
 
-def _live_values(stencil: ir.Stencil) -> int:
-    """Estimated concurrently-live whole-tile values on the Mosaic value
-    stack.  Baseline 8; expression-heavy statements (e.g. the inlined
-    16-term windowed semi-Lagrangian sum) measurably exceed it -- the
-    512^2x80 SL kernel ran ~2 MB past the 8-value estimate ("Ran out of
-    memory in memory space vmem ... on stack"), so grow with the largest
-    single statement's node count."""
-    biggest = 0
+@dataclasses.dataclass(frozen=True)
+class BlockPlan:
+    """Block shape and Triton launch parameters of one stage."""
+
+    bi: int
+    bj: int
+    num_warps: int
+    num_stages: int
+
+
+def plan_blocks(ni: int, nj: int, itemsize: int = 4) -> BlockPlan:
+    """Block shape for an ``ni`` x ``nj`` compute region.
+
+    J rows of 64 elements (256 B at f32: two 128-byte transactions; 32
+    for 8-byte types), at most 512 points per block, each dimension a
+    power of two no larger than the region needs."""
+    bj = min(_pow2_ceil(nj), 64 if itemsize <= 4 else 32)
+    bi = min(_pow2_ceil(ni), max(1, 512 // bj))
+    num_warps = 4 if bi * bj >= 256 else (2 if bi * bj >= 64 else 1)
+    return BlockPlan(bi=bi, bj=bj, num_warps=num_warps, num_stages=2)
+
+
+# --------------------------------------------------------------------------- #
+# Stage / sweep planning (pure IR analysis)
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass
+class Sweep:
+    """One in-kernel K loop over [k0, k1) running ``stmts`` per plane,
+    each over its horizontal compute extent ``exts``."""
+
+    order: ir.LoopOrder
+    k0: int
+    k1: int
+    stmts: List[ir.Stmt]
+    exts: List[Extent]
+
+    @property
+    def backward(self) -> bool:
+        return self.order == ir.LoopOrder.BACKWARD
+
+
+@dataclasses.dataclass
+class Stage:
+    """The sweeps of one kernel launch and their horizontal extent."""
+
+    sweeps: List[Sweep]
+    ext: Extent
+
+
+def _accesses(stmts) -> Tuple[List[ir.FieldAccess], List[ir.FieldAccess]]:
+    """(reads, writes) of a statement list; targets are writes only."""
+    from gt4py_tpu.cartesian.analysis import _stmt_reads, _stmt_writes
+
+    reads, writes = [], []
+    for s in stmts:
+        reads.extend(_stmt_reads(s))
+        writes.extend(_stmt_writes(s))
+    return reads, writes
+
+
+def _is_cartesian(acc) -> bool:
+    return isinstance(acc.offset, ir.CartesianOffset)
+
+
+def _hoff(acc) -> bool:
+    """Read at a horizontal offset."""
+    return _is_cartesian(acc) and bool(acc.offset.i or acc.offset.j)
+
+
+def _koff(acc) -> bool:
+    """Read at another level: a K offset, variable or absolute."""
+    return not _is_cartesian(acc) or bool(acc.offset.k)
+
+
+def _check_offsets(reads, writes) -> None:
+    for acc in reads + writes:
+        if acc.data_index:
+            raise _PallasIneligible("data-dimension index")
+    for w in writes:
+        o = w.offset
+        if not _is_cartesian(w) or o.i or o.j or o.k:
+            raise _PallasIneligible("offset write")
+
+
+def plan_stages(stencil: ir.Stencil, extents, dK: int, scalars) -> List[Stage]:
+    """Split the stencil into kernel launches (stages) and K loops (sweeps).
+
+    A serial section is one sweep and never splits.  Consecutive PARALLEL
+    statements of one interval share a sweep unless one reads at a K
+    offset a name another writes.  A unit that reads at a horizontal
+    offset a name written earlier in the stage, or writes a name read so
+    earlier in the stage, starts a new stage: blocks cannot see each
+    other's writes inside one launch.  A PARALLEL horizontal region is
+    one unit per statement of its body (each over the region's extent),
+    so a region reading its own earlier write at an offset splits too."""
+    units = []  # (order, k0, k1, [stmts], [extents])
     for loop in stencil.vertical_loops:
         for section in loop.sections:
+            try:
+                k0, k1 = section.interval.resolve(dK, scalars)
+            except Exception as e:  # traced runtime bound
+                raise _PallasIneligible("runtime interval bound") from e
+            k0, k1 = max(k0, 0), min(k1, dK)
+            if k1 <= k0:
+                continue
+            if loop.loop_order != ir.LoopOrder.PARALLEL:
+                exts = [extents.stmt_extent(s) for s in section.body]
+                units.append((loop.loop_order, k0, k1, list(section.body), exts))
+                continue
             for stmt in section.body:
-                biggest = max(biggest, len(ir.walk_values(stmt)))
-    return _LIVE_VALUES + min(8, biggest // 100)
+                ext = extents.stmt_extent(stmt)
+                parts = [stmt]
+                if isinstance(stmt, ir.HorizontalRestriction) and len(stmt.body) > 1:
+                    parts = [ir.HorizontalRestriction(stmt.masks, [b]) for b in stmt.body]
+                for part in parts:
+                    units.append((loop.loop_order, k0, k1, [part], [ext]))
+
+    stages: List[Stage] = []
+    st_written: set = set()
+    st_hread: set = set()
+    sw_written: set = set()
+    sw_kread: set = set()
+    for order, k0, k1, stmts, exts in units:
+        reads, writes = _accesses(stmts)
+        _check_offsets(reads, writes)
+        w_names = {w.name for w in writes}
+        h_reads = {r.name for r in reads if _hoff(r)}
+        k_reads = {r.name for r in reads if _koff(r)}
+        if h_reads & w_names:
+            # a unit reading its own writes at a horizontal offset needs
+            # its neighbours' columns mid-launch
+            raise _PallasIneligible("horizontal read of a unit's own write")
+        if w_names & {r.name for r in reads if not _is_cartesian(r)}:
+            # a gather over the column being swept: loads could be
+            # pipelined ahead of the stores they depend on
+            raise _PallasIneligible("variable-K read of a swept field")
+        ext = Extent.zeros()
+        for e in exts:
+            ext = ext | e
+        new_stage = not stages or (h_reads & st_written) or (w_names & st_hread)
+        if new_stage:
+            stages.append(Stage(sweeps=[], ext=ext))
+            st_written, st_hread = set(), set()
+        stage = stages[-1]
+        stage.ext = stage.ext | ext
+        last = stage.sweeps[-1] if stage.sweeps and not new_stage else None
+        join = (
+            last is not None
+            and order == ir.LoopOrder.PARALLEL
+            and last.order == ir.LoopOrder.PARALLEL
+            and (last.k0, last.k1) == (k0, k1)
+            and not (k_reads & (sw_written | w_names))
+            and not (w_names & sw_kread)
+        )
+        if join:
+            last.stmts.extend(stmts)
+            last.exts.extend(exts)
+        else:
+            stage.sweeps.append(Sweep(order, k0, k1, list(stmts), list(exts)))
+            sw_written, sw_kread = set(), set()
+        sw_written |= w_names
+        sw_kread |= k_reads
+        st_written |= w_names
+        st_hread |= h_reads
+    return stages
 
 
-def _divisors(n: int):
-    return [d for d in range(1, n + 1) if n % d == 0]
+def _written_first(stmts, name: str) -> bool:
+    """Is the first statement mentioning ``name`` an unconditional
+    assignment to it that does not read it?"""
+    for s in stmts:
+        if not any(
+            isinstance(n, ir.FieldAccess) and n.name == name
+            for n in ir.walk_values(s)
+        ):
+            continue
+        return (
+            isinstance(s, ir.Assign)
+            and s.target.name == name
+            and all(a.name != name for a in ir.field_accesses(s.value))
+        )
+    return False
 
 
-def _pad_tile(ni: int, nj: int, sub: int = _SUBLANE) -> Tuple[int, int]:
-    """Mosaic pads the two minor dims of every VMEM buffer/value to the
-    dtype's (sub, 128) register tiling; account at the padded sizes."""
-    pi = ni if ni == 1 else -(-ni // sub) * sub
-    pj = nj if nj == 1 else -(-nj // _LANE) * _LANE
-    return pi, pj
+def plan_storage(stencil: ir.Stencil, stages: List[Stage]):
+    """Classify names: ``values`` (temporaries that never need device
+    memory: SSA plane values) and per-sweep ``carries``
+    {id(sweep): {name: depth}} (planes a serial sweep reads behind itself:
+    K-cache registers).
+
+    A temporary is a value when it is read only at its own point, except
+    for the planes a serial sweep carries, and either lives in one sweep
+    or is written first, unconditionally, in every sweep that touches it
+    (the plane-local rule of ``passes.plane_local_temps``)."""
+    sweeps = [sw for st in stages for sw in st.sweeps]
+    touching: Dict[str, List[Sweep]] = {}
+    bad: set = set()
+    carried: set = set()
+    for sw in sweeps:
+        reads, writes = _accesses(sw.stmts)
+        for name in {a.name for a in reads + writes}:
+            touching.setdefault(name, []).append(sw)
+        for r in reads:
+            if not _is_cartesian(r) or _hoff(r):
+                bad.add(r.name)
+                continue
+            behind = (r.offset.k > 0) if sw.backward else (r.offset.k < 0)
+            if r.offset.k and not (sw.order != ir.LoopOrder.PARALLEL and behind):
+                bad.add(r.name)
+            elif r.offset.k:
+                carried.add(r.name)
+
+    def is_value(n):
+        sws = touching.get(n, [])
+        if n in bad:
+            return False
+        if len(sws) <= 1:
+            return True
+        return n not in carried and all(_written_first(sw.stmts, n) for sw in sws)
+
+    values = frozenset(n for n in stencil.temp_decls if is_value(n))
+    carries: Dict[int, Dict[str, int]] = {}
+    for sw in sweeps:
+        if sw.order == ir.LoopOrder.PARALLEL:
+            continue
+        reads, writes = _accesses(sw.stmts)
+        w_names = {w.name for w in writes}
+        depth: Dict[str, int] = {}
+        for r in reads:
+            if not _is_cartesian(r) or _hoff(r) or r.name not in w_names:
+                continue
+            dk = -r.offset.k if not sw.backward else r.offset.k
+            if dk > 0:
+                depth[r.name] = max(depth.get(r.name, 0), dk)
+        carries[id(sw)] = depth
+    return values, carries
 
 
-def _full_interval(iv: ir.Interval) -> bool:
-    if iv.is_runtime:
-        return False
+# --------------------------------------------------------------------------- #
+# In-kernel tracer
+# --------------------------------------------------------------------------- #
+
+
+def _within(a: Extent, b: Extent) -> bool:
+    """Is horizontal extent ``a`` inside ``b``?"""
     return (
-        iv.start.level == ir.LevelMarker.START
-        and iv.start.offset == 0
-        and iv.end.level == ir.LevelMarker.END
-        and iv.end.offset == 0
+        a.i[0] >= b.i[0] and a.i[1] <= b.i[1]
+        and a.j[0] >= b.j[0] and a.j[1] <= b.j[1]
     )
+
+
+class _BlockCtx:
+    """Trace context of one statement unit on one (1, BI, BJ) plane block."""
+
+    def __init__(self, exe, ext: Extent):
+        self.exe = exe
+        self.ext = ext
+        self.klevel = exe.k
+        self.kslice = None
+        self.masks: List[Any] = []
+        self.store_mask = exe._ext_mask(ext)  # block points the unit computes
+
+    ni = property(lambda self: self.exe.bi)
+    nj = property(lambda self: self.exe.bj)
+    nk = 1
+
+    def shape(self):
+        return (1, self.exe.bi, self.exe.bj)
+
+
+class _ColumnTracer(JaxTracer):
+    """Evaluates statement units on one plane block inside the kernel.
+
+    ``refs`` maps every name living in device memory to its Pallas ref
+    (written names: the output ref, aliased to the input buffer).
+    ``plane`` holds the values assigned at the current level, ``carry``
+    the K-cache planes behind the sweep."""
+
+    def __init__(self, analysis, meta, domain, refs, bi, bj, g0):
+        super().__init__(analysis, meta, domain)
+        self.refs = refs
+        self.bi, self.bj = bi, bj
+        self.gi0, self.gj0 = g0  # block origin in domain coordinates
+        self.k = None
+        self.plane: Dict[str, Any] = {}
+        self.plane_ext: Dict[str, Extent] = {}
+        self.carry: Dict[str, List[Any]] = {}
+        self.backward = False
+
+    # ---- indexing ---- #
+
+    def _iota(self, axis):
+        import jax
+        import jax.numpy as jnp
+
+        shape = (1, self.bi, 1) if axis == 1 else (1, 1, self.bj)
+        return jax.lax.broadcasted_iota(jnp.int32, shape, axis)
+
+    def block_ij(self):
+        """Domain-coordinate (i, j) index blocks of this program."""
+        return self.gi0 + self._iota(1), self.gj0 + self._iota(2)
+
+    def _ext_mask(self, ext: Extent):
+        """Block points inside the domain grown by ``ext``."""
+        i, j = self.block_ij()
+        dI, dJ, _ = self.domain
+        return (
+            (i >= ext.i[0]) & (i < dI + ext.i[1])
+            & (j >= ext.j[0]) & (j < dJ + ext.j[1])
+        )
+
+    def _window(self, name, di, dj, k):
+        """Per-point int32 (k, i, j) index blocks of ``name`` at level ``k``
+        (a scalar or a per-point block) shifted by (di, dj), and the mask
+        of points inside the buffer (None: all are).  Size-1 axes
+        broadcast.  Indices are not yet made safe for masked lanes."""
+        import jax.numpy as jnp
+
+        m = self.meta[name]
+        si, sj, sk = m.shape[:3]
+        oi, oj, ok = m.origin
+        shape = (1, self.bi, self.bj)
+        i, j = self.block_ij()
+        mask = None
+        idx = [jnp.broadcast_to(jnp.clip(k + ok, 0, sk - 1), shape)]
+        for pos, size, org in ((i + di, si, oi), (j + dj, sj, oj)):
+            if size == 1:
+                idx.append(jnp.zeros(shape, jnp.int32))
+                continue
+            p = jnp.broadcast_to(pos + org, shape)
+            inside = (p >= 0) & (p < size)
+            mask = inside if mask is None else (mask & inside)
+            idx.append(p)
+        return [x.astype(jnp.int32) for x in idx], mask
+
+    def load(self, name, di, dj, k):
+        """Masked load; masked lanes read a clipped in-buffer address."""
+        import jax.numpy as jnp
+        from jax.experimental.pallas import triton as plgpu
+
+        idx, mask = self._window(name, di, dj, k)
+        shape = self.meta[name].shape
+        idx = [jnp.clip(x, 0, n - 1) for x, n in zip(idx, (shape[2],) + shape[:2])]
+        ref = self.refs[name].at[tuple(idx)]
+        if mask is None:
+            v = plgpu.load(ref)
+        else:
+            v = plgpu.load(ref, mask=mask, other=0)
+        return v != 0 if self.meta[name].dtype == np.bool_ else v
+
+    def store(self, name, value, k, store_mask):
+        """Masked store; masked lanes address one past the buffer end, so
+        no lane can alias an active one (the interpreter drops them)."""
+        import jax.numpy as jnp
+        from jax.experimental.pallas import triton as plgpu
+
+        idx, mask = self._window(name, 0, 0, k)
+        mask = store_mask if mask is None else (mask & store_mask)
+        shape = self.meta[name].shape
+        idx = [
+            jnp.where(mask, x, n) for x, n in zip(idx, (shape[2],) + shape[:2])
+        ]
+        if value.dtype == np.bool_:
+            value = value.astype(jnp.int8)
+        plgpu.store(self.refs[name].at[tuple(idx)], value, mask=mask)
+
+    # ---- tracer hooks ---- #
+
+    def _gather_k(self, env, acc, ctx):
+        """Per-point K read (variable offset or absolute index), clipped to
+        the buffer like the other executors."""
+        import jax.numpy as jnp
+
+        kv = jnp.asarray(self._eval(env, acc.offset.k, ctx)).astype(jnp.int32)
+        if isinstance(acc.offset, ir.VariableKOffset):
+            kv = kv + self.k
+        return self.load(acc.name, 0, 0, kv)
+
+    def _read_region(self, env, acc, ctx, for_write=False):
+        import jax.numpy as jnp
+
+        name = acc.name
+        if not _is_cartesian(acc):
+            if name not in self.refs:
+                return jnp.zeros(ctx.shape(), self.meta[name].dtype), None
+            return self._gather_k(env, acc, ctx), None
+        o = acc.offset
+        if (o.i, o.j, o.k) == (0, 0, 0) and name in self.plane:
+            val, ext = self.plane[name], self.plane_ext[name]
+            if _within(ctx.ext, ext):
+                return val, None
+            # beyond the extent that computed the plane value, the point
+            # holds what memory holds (zeros for a value temporary)
+            if name in self.refs:
+                other = self.load(name, 0, 0, self.k)
+            else:
+                other = jnp.zeros(ctx.shape(), val.dtype)
+            return jnp.where(self._ext_mask(ext), val, other), None
+        if not (o.i or o.j) and name in self.carry:
+            d = o.k if self.backward else -o.k
+            if 0 < d <= len(self.carry[name]):
+                return self.carry[name][d - 1], None
+        if name not in self.refs:  # value temp not yet assigned: zeros
+            return jnp.zeros(ctx.shape(), self.meta[name].dtype), None
+        return self.load(name, o.i, o.j, self.k + o.k), None
+
+    def _trace_assign(self, env, stmt: ir.Assign, ctx):
+        import jax.numpy as jnp
+
+        name = stmt.target.name
+        dtype = self.meta[name].dtype
+        rhs = jnp.asarray(self._eval(env, stmt.value, ctx))
+        if rhs.dtype != dtype:
+            rhs = rhs.astype(dtype)
+        rhs = jnp.broadcast_to(rhs, ctx.shape())
+        if ctx.masks:
+            mask = ctx.masks[0]
+            for m in ctx.masks[1:]:
+                mask = jnp.logical_and(mask, m)
+            old, _ = self._read_region(env, stmt.target, ctx)
+            rhs = self._select(mask, rhs, jnp.broadcast_to(old, ctx.shape()))
+        ext = ctx.ext
+        if name in self.plane and not _within(self.plane_ext[name], ext):
+            # keep the earlier value where this statement does not reach
+            rhs = jnp.where(ctx.store_mask, rhs, self.plane[name])
+            ext = ext | self.plane_ext[name]
+        self.plane[name] = rhs
+        self.plane_ext[name] = ext
+        if name in self.refs:
+            self.store(name, rhs, self.k, ctx.store_mask)
+        return env
+
+    def _trace_while(self, env, stmt: ir.While, ctx):
+        import jax
+        import jax.numpy as jnp
+
+        names = ir.assigned_names(stmt.body)
+        for n in names:
+            old, _ = self._read_region(
+                env, ir.FieldAccess(name=n, offset=ir.CartesianOffset()), ctx
+            )
+            self.plane[n] = jnp.broadcast_to(old, ctx.shape())
+            self.plane_ext[n] = ctx.ext
+
+        def active(mask):
+            cond = jnp.asarray(self._eval(env, stmt.cond, ctx)).astype(bool)
+            mask = jnp.logical_and(mask, jnp.broadcast_to(cond, ctx.shape()))
+            for m in ctx.masks:
+                mask = jnp.logical_and(mask, m)
+            return mask
+
+        def body(carry):
+            mask, vals = carry
+            self.plane.update(zip(names, vals))
+            ctx.masks.append(mask > 0)
+            for s in stmt.body:
+                self._trace_stmt(env, s, ctx)
+            ctx.masks.pop()
+            mask = active(mask > 0).astype(jnp.int32)
+            return mask, tuple(self.plane[n] for n in names)
+
+        mask0 = active(jnp.ones(ctx.shape(), bool)).astype(jnp.int32)
+        _, vals = jax.lax.while_loop(
+            lambda c: jnp.max(c[0]) > 0,
+            body,
+            (mask0, tuple(self.plane[n] for n in names)),
+        )
+        self.plane.update(zip(names, vals))
+        return env
+
+    def _trace_horizontal(self, env, stmt: ir.HorizontalRestriction, ctx):
+        i, j = self.block_ij()
+        dI, dJ, _ = self.domain
+        mask = None
+        for m in stmt.masks:
+            ilo, ihi = m.i.resolve(dI)
+            jlo, jhi = m.j.resolve(dJ)
+            r = (i >= ilo) & (i < ihi) & (j >= jlo) & (j < jhi)
+            mask = r if mask is None else (mask | r)
+        ctx.masks.append(mask)
+        for s in stmt.body:
+            env = self._trace_stmt(env, s, ctx)
+        ctx.masks.pop()
+        return env
+
+    def _eval(self, env, expr, ctx):
+        import jax.numpy as jnp
+
+        if isinstance(expr, ir.AxisPosition):
+            from gt4py_tpu.cartesian.analysis import default_int_dtype
+
+            dt = default_int_dtype(self.stencil)
+            i, j = self.block_ij()
+            pos = {"I": i, "J": j, "K": self.k}[expr.axis]
+            return jnp.asarray(pos).astype(dt)
+        if isinstance(expr, ir.NativeFuncCall):
+            return self._native_call(env, expr, ctx)
+        if (
+            isinstance(expr, ir.UnaryOp)
+            and expr.op == ir.UnaryOperator.NEG
+            and isinstance(expr.expr, ir.Literal)
+        ):
+            # fold: the Triton lowering cannot negate a constant operand
+            lit = expr.expr
+            return super()._eval(env, ir.Literal(-lit.value, lit.dtype), ctx)
+        return super()._eval(env, expr, ctx)
+
+    def _native_call(self, env, expr, ctx):
+        """Math functions; 16-bit arguments are computed in f32 and rounded
+        back once, because libdevice has no 16-bit math (XLA's own sub-f32
+        lowering does the same)."""
+        import jax.numpy as jnp
+
+        from gt4py_tpu.cartesian.analysis import promote_dtypes
+        from gt4py_tpu.cartesian.backend.jax_backend import _NATIVE_JNP
+
+        args = [jnp.asarray(self._eval(env, a, ctx)) for a in expr.args]
+        target = promote_dtypes(*[np.dtype(a.dtype) for a in args])
+        if len(args) > 1:
+            args = [a.astype(target) if a.dtype != target else a for a in args]
+        if target not in F16_DTYPES:
+            return _NATIVE_JNP[expr.func](*args)
+        out = _NATIVE_JNP[expr.func](*[a.astype(jnp.float32) for a in args])
+        if np.dtype(out.dtype) == np.dtype(np.float32):
+            return out.astype(target)
+        return out  # isnan/isinf/isfinite keep their bool result
+
+    # ---- sweeps ---- #
+
+    def run_sweep(self, env, sweep: Sweep, depth: Dict[str, int]):
+        import jax
+        import jax.numpy as jnp
+
+        self.backward = sweep.backward
+        step = -1 if sweep.backward else 1
+        first = sweep.k1 - 1 if sweep.backward else sweep.k0
+        names = sorted(depth)
+        sweep_ext = Extent.zeros()
+        for e in sweep.exts:
+            sweep_ext = sweep_ext | e
+
+        def init(name, d):
+            if name in self.refs:
+                return self.load(name, 0, 0, jnp.int32(first - step * d))
+            return jnp.zeros((1, self.bi, self.bj), self.meta[name].dtype)
+
+        carry0 = tuple(
+            tuple(init(n, d) for d in range(1, depth[n] + 1)) for n in names
+        )
+
+        def body(it, carry):
+            self.k = jnp.int32(first) + step * it
+            self.plane, self.plane_ext = {}, {}
+            self.carry = dict(zip(names, [list(c) for c in carry]))
+            for stmt, ext in zip(sweep.stmts, sweep.exts):
+                self._trace_stmt(env, stmt, _BlockCtx(self, ext))
+            # the carried plane must hold every point a reader may use
+            ctx = _BlockCtx(self, sweep_ext)
+            new = []
+            for n, c in zip(names, carry):
+                cur, _ = self._read_region(
+                    env, ir.FieldAccess(name=n, offset=ir.CartesianOffset()), ctx
+                )
+                cur = jnp.broadcast_to(cur, (1, self.bi, self.bj))
+                new.append((cur,) + tuple(c[:-1]))
+            return tuple(new)
+
+        n = sweep.k1 - sweep.k0
+        jax.lax.fori_loop(jnp.int32(0), jnp.int32(n), body, carry0)
+        self.plane, self.plane_ext, self.carry = {}, {}, {}
+
+
+# --------------------------------------------------------------------------- #
+# Backend
+# --------------------------------------------------------------------------- #
 
 
 @register("pallas")
 class PallasBackend(JaxBackend):
-    """Pipelined fused-tile Mosaic kernels with XLA fallback."""
-
-    storage_device = "tpu"
-
-    def __init__(self, analysis, options=None):
-        # Keep temporaries as IR statements: inside the kernel each temp
-        # becomes an SSA VALUE computed once and sliced/rolled per read
-        # (see JaxTracer.value_temps), so the XLA-path inlining pass --
-        # which duplicates the defining expression at every offset read
-        # -- would only multiply VPU work here.  The rare XLA fallback
-        # then runs the un-inlined form: bitwise-identical (the pass is
-        # numerics-neutral), just with buffer temporaries.  Reassigned
-        # temps are still SSA-renamed (neutral) so each split becomes
-        # value-eligible.
-        if not (options or {}).get("no_inline", False):
-            from gt4py_tpu.cartesian import analysis as analysis_mod
-            from gt4py_tpu.cartesian.passes import rename_reassigned_temporaries
-
-            renamed = rename_reassigned_temporaries(analysis.stencil)
-            if len(renamed.temp_decls) != len(analysis.stencil.temp_decls):
-                analysis = analysis_mod.analyze(renamed)
-        super().__init__(analysis, {**(options or {}), "no_inline": True})
+    """Column kernels (Pallas, Triton route) with a visible XLA fallback."""
 
     def _trace_env(self, metas, env, scalars, domain, periodic=()):
         """Kernel path under a custom JVP: ``pallas_call`` itself is not
         differentiable, so tangents re-trace the stencil through the XLA
-        executor (identical numerics, jax_backend.py).  custom_jvp (not
-        custom_vjp) supports BOTH autodiff modes: jax.grad linearizes the
-        jvp rule and transposes its (pure-XLA) tangent graph, so reverse
-        mode gets XLA-derived adjoints while jvp/jacfwd work too -- fast
-        Mosaic forward either way.  Traced scalar parameters participate
-        in differentiation; python-scalar parameters (incl. baked static
-        bounds) are closed over as constants.  Disable with
-        ``GT4PY_TPU_PALLAS_AUTODIFF=0``."""
-        import os as _os
-
-        if _os.environ.get("GT4PY_TPU_PALLAS_AUTODIFF", "1") == "0":
-            return self._trace_env_kernel(metas, env, scalars, domain, periodic)
-
+        executor (identical numerics).  custom_jvp supports both autodiff
+        modes: jax.grad linearizes the jvp rule and transposes its
+        (pure-XLA) tangent graph.  Traced scalar parameters participate in
+        differentiation; python scalars are closed over as constants."""
         import jax
 
         written = [n for n in self.written if n in env]
@@ -201,7 +684,7 @@ class PallasBackend(JaxBackend):
         arr_scalars = {k: v for k, v in scalars.items() if is_arr(v)}
         py_scalars = {k: v for k, v in scalars.items() if not is_arr(v)}
 
-        def pallas_out(env_in, sc):
+        def kernel_out(env_in, sc):
             out = self._trace_env_kernel(
                 metas, dict(env_in), {**py_scalars, **sc}, domain, periodic
             )
@@ -213,86 +696,42 @@ class PallasBackend(JaxBackend):
             )
             return {n: out[n] for n in written}
 
-        run = jax.custom_jvp(pallas_out)
+        run = jax.custom_jvp(kernel_out)
 
         @run.defjvp
         def _run_jvp(primals, tangents):
-            # primal via the Mosaic kernel; tangent via the XLA executor
-            # (its unused primal outputs are dead-code-eliminated)
-            out = pallas_out(*primals)
+            out = kernel_out(*primals)
             _, tang = jax.jvp(xla_out, primals, tangents)
             return out, tang
 
-        outs = run(env, arr_scalars)
         new_env = dict(env)
-        new_env.update(outs)
+        new_env.update(run(env, arr_scalars))
         return new_env
+
+    def _fallback(self, reason: str, metas, env, scalars, domain, periodic):
+        name = self.analysis.stencil.name
+        FALLBACK_EVENTS.record((name, reason))
+        config.warn_fallback(f"stencil '{name}'", reason)
+        if os.environ.get("GT4PY_TPU_PALLAS_DEBUG"):
+            print(f"[pallas] {name}: XLA fallback: {reason}", flush=True)
+        return JaxBackend._trace_env(self, metas, env, scalars, domain, periodic)
 
     def _trace_env_kernel(self, metas, env, scalars, domain, periodic=()):
         if any(m.data_ndim for m in metas.values()):
             out = self._trace_split_data_dims(metas, env, scalars, domain, periodic)
             if out is not None:
                 return out
-        quiet_cost_decline = False
-        import os as _os_env
-
-        force_serial = _os_env.environ.get("GT4PY_TPU_PALLAS_SERIALIZE") == "1"
+        cls = kernel_class(self.analysis.stencil)
+        if cls not in KERNEL_CLASSES:
+            return self._fallback(
+                f"class rule: {cls} stencils run on XLA",
+                metas, env, scalars, domain, periodic,
+            )
         try:
-            if force_serial and self._serial_child() is not None:
-                return self._trace_serialized(
-                    metas, env, scalars, tuple(domain), periodic
-                )
             return self._pallas_trace(metas, env, scalars, tuple(domain), periodic)
-        except _PallasIneligible as first_err:
-            if (
-                first_err.args
-                and first_err.args[0] == "geometry"
-                and not periodic
-            ):
-                # alignment-infeasible buffer geometry (odd halo widths,
-                # unaligned origins): functionally pad the buffers to an
-                # aligned geometry and retry -- one XLA pad/slice per
-                # offending field instead of losing the kernel entirely
-                try:
-                    return self._trace_repaired(
-                        metas, env, scalars, tuple(domain), periodic
-                    )
-                except _PallasIneligible as rep_err:
-                    quiet_cost_decline = (
-                        rep_err.args and rep_err.args[0] == "repair-cost"
-                    )
-            if not force_serial and self._serial_child() is not None:
-                # mixed-stencil VMEM rescue: re-plan with PARALLEL loops
-                # serialized (per-plane values, plane-local temp scratch)
-                try:
-                    return self._trace_serialized(
-                        metas, env, scalars, tuple(domain), periodic
-                    )
-                except _PallasIneligible:
-                    pass
-            try:
-                # deep-K serial stencils: K-blocked per-loop passes
-                return self._trace_kblocked(
-                    metas, env, scalars, tuple(domain), periodic
-                )
-            except _PallasIneligible:
-                pass
-            import os as _os
-            import traceback
-
-            tail = "".join(traceback.format_exc().splitlines(True)[-6:])
-            if not quiet_cost_decline:
-                FALLBACK_EVENTS.record((self.analysis.stencil.name, tail))
-                config.warn_fallback(
-                    f"stencil '{self.analysis.stencil.name}'",
-                    tail.splitlines()[-1] if tail.splitlines() else "ineligible",
-                )
-            if _os.environ.get("GT4PY_TPU_PALLAS_DEBUG"):
-                print(
-                    f"[pallas] {self.analysis.stencil.name}: XLA fallback at\n" + tail,
-                    flush=True,
-                )
-            return super()._trace_env(metas, env, scalars, domain, periodic)
+        except _PallasIneligible as e:
+            reason = str(e) or "ineligible"
+            return self._fallback(reason, metas, env, scalars, domain, periodic)
 
     # ------------------------------------------------------------------ #
 
@@ -310,10 +749,9 @@ class PallasBackend(JaxBackend):
         return self._split_child_backend
 
     def _trace_split_data_dims(self, metas, env, scalars, domain, periodic):
-        """Run data-dims stencils as Mosaic kernels over per-component
-        (K, I, J) buffers: a trailing data dim would become a tiny,
-        unaligned Mosaic lane dimension, so the split happens outside the
-        kernel (XLA slices/updates fuse with the surrounding program)."""
+        """Run data-dims stencils as kernels over per-component (K, I, J)
+        buffers: the split happens outside the kernel (XLA slices/updates
+        fuse with the surrounding program)."""
         import itertools
 
         from gt4py_tpu.cartesian.passes import component_name
@@ -358,1906 +796,178 @@ class PallasBackend(JaxBackend):
             result[name] = buf
         return result
 
-    def _check_eligible(self, metas) -> None:
-        for node in ir.walk_values(self.analysis.stencil.vertical_loops):
-            if isinstance(node, ir.FieldAccess):
-                if node.data_index:
-                    raise _PallasIneligible()
-        for m in metas.values():
-            if m.data_ndim:
-                raise _PallasIneligible()
-        # API fields masked-written over extended unit extents mutate their
-        # halos (oracle semantics); the tile kernel writes interiors only
-        ext = self.analysis.extents
-        for name in self.written:
-            if name in self.analysis.stencil.field_decls:
-                we = ext.write_extent(name)
-                if we.i != (0, 0) or we.j != (0, 0):
-                    raise _PallasIneligible()
-
-    # ------------------------------------------------------------------ #
-    # geometry repair: aligned-mode planning demands DMA windows landing
-    # on the dtype's (sub, 128) tiling INSIDE the user's buffers; exact
-    # 1-wide halos (the natural allocation for a 1-point read extent)
-    # violate that, and the r4 bench showed a production stencil silently
-    # de-kerneling on chip for exactly this reason (VERDICT r4 #2).
-    # Instead of losing the kernel, pad the offending buffers to an
-    # aligned geometry outside the kernel (one fused XLA pad per field,
-    # slice-back for written ones) and retry.
     # ------------------------------------------------------------------ #
 
-    def _repair_pads(self, metas, domain):
-        """Compute the aligned-geometry repair: per-field
-        ((fi, bi), (fj, bj)) front/back buffer pads on I and J plus a
-        padded compute domain (dIp, dJp) such that every aligned-mode
-        gate passes -- origins land on the packing, expanded halos fit,
-        physical J rows become lane multiples (the mode-A full-row
-        constraint), and the domain itself becomes tileable (e.g. a
-        514-wide write domain has no sublane-divisible tile at all; the
-        kernel computes the rounded-up domain and the extra rows are
-        discarded at splice-back).  Returns (pads, (dIp, dJp)) or None
-        when nothing would change (the failure is not geometric).
-
-        Domain padding computes garbage values from pad content in the
-        extra rows/columns; that is sound for pure pointwise/column
-        execution but NOT for ``while`` loops (garbage conditions may
-        not terminate), so stencils containing While only get buffer
-        pads."""
-        dI, dJ, _dK = domain
-        ext = self.analysis.extents
-        up = lambda x, b: -(-x // b) * b
-        subx = self._sub_max(metas)
-        has_while = any(
-            isinstance(n, ir.While)
-            for n in ir.walk_values(self.analysis.stencil.vertical_loops)
-        )
-        dIp = dI if has_while else up(dI, subx)
-        dJp = dJ if has_while else up(dJ, _LANE)
-        pads = {}
-        any_pad = False
-        for name, m in metas.items():
-            e = ext.alloc_extent(name)
-            hi0, hi1 = -e.i[0], e.i[1]
-            hj0, hj1 = -e.j[0], e.j[1]
-            oi, oj, _ok = m.origin
-            ni, nj = m.shape[0], m.shape[1]
-            fi = bi = fj = bj = 0
-            if ni != 1:
-                sub = _sublane(m.dtype)
-                oi2 = up(max(oi, hi0), sub)
-                ni2 = max(ni + (oi2 - oi), oi2 + dIp + up(hi1, sub))
-                fi, bi = oi2 - oi, ni2 - (ni + (oi2 - oi))
-            if nj != 1:
-                oj2 = up(max(oj, hj0), _LANE)
-                hj1x = up(hj1, _LANE) if (hj0 or hj1) else 0
-                nj2 = up(max(nj + (oj2 - oj), oj2 + dJp + hj1x), _LANE)
-                fj, bj = oj2 - oj, nj2 - (nj + (oj2 - oj))
-            pads[name] = ((fi, bi), (fj, bj))
-            any_pad = any_pad or fi or bi or fj or bj
-        if not any_pad and (dIp, dJp) == (dI, dJ):
-            return None
-        return pads, (dIp, dJp)
-
-    def _padded_metas(self, metas, pads):
+    def _temp_metas(self, domain) -> Dict[str, _FieldMeta]:
         out = {}
-        for name, m in metas.items():
-            (fi, bi), (fj, bj) = pads[name]
+        ext = self.analysis.extents
+        for name, decl in self.analysis.stencil.temp_decls.items():
+            if decl.data_dims:
+                raise _PallasIneligible("temporary with data dimensions")
+            e = ext.alloc_extent(name)
             out[name] = _FieldMeta(
-                shape=(m.shape[0] + fi + bi, m.shape[1] + fj + bj, m.shape[2])
-                + tuple(m.shape[3:]),
-                origin=(m.origin[0] + fi, m.origin[1] + fj, m.origin[2]),
-                dtype=m.dtype,
-                dimensions=m.dimensions,
-                data_ndim=m.data_ndim,
-            )
-        return out
-
-    def _repair_cost_ok(self, metas, pads, domain) -> bool:
-        """Is geometry repair worth its pad copies?  Each padded buffer
-        pays a full read+write (jnp.pad cannot fuse into pallas_call);
-        the kernel's advantage over staged XLA scales with statement
-        complexity x points.  Calibration (r5 chip session, v5e): the
-        4-statement hdiff program's SIMPLE statements ran 4.88 ms on
-        XLA vs 7.50 ms as repair-padded kernels (pads dominate), while
-        complex fused stencils win ~3.7x kernel-vs-XLA.  Small pads are
-        always fine (the common exact-halo model-buffer case)."""
-        pad_bytes = 0
-        for name, m in metas.items():
-            (fi, bi), (fj, bj) = pads[name]
-            if fi or bi or fj or bj:
-                buf = m.dtype.itemsize
-                for s in m.shape:
-                    buf *= max(1, s)
-                pad_bytes += 2 * buf
-                if name in self.written:
-                    pad_bytes += 2 * buf  # slice-back copy
-        if pad_bytes <= 4 * 1024 * 1024:
-            return True
-        nodes = sum(
-            1 for _ in ir.walk_values(self.analysis.stencil.vertical_loops)
-        )
-        points = domain[0] * domain[1] * domain[2]
-        savings_s = 1.9e-12 * nodes * points  # ~(XLA - kernel) per node-point
-        return savings_s > pad_bytes / 250e9  # effective HBM BW (docs)
-
-    def _trace_repaired(self, metas, env, scalars, domain, periodic):
-        import jax.numpy as jnp
-
-        repair = self._repair_pads(metas, domain)
-        if repair is None:
-            raise _PallasIneligible()
-        pads, (dIp, dJp) = repair
-        if not self._repair_cost_ok(metas, pads, domain):
-            # staged XLA is the better choice here: record a QUIET,
-            # distinguishable event (this is a measured decision, not a
-            # silent perf cliff) and decline
-            FALLBACK_EVENTS.record(
-                (
-                    self.analysis.stencil.name,
-                    "geometry repair declined by cost model (XLA chosen)",
-                )
-            )
-            raise _PallasIneligible("repair-cost")
-        dI, dJ, dK = domain
-        metas2 = self._padded_metas(metas, pads)
-        env2 = {}
-        for name, v in env.items():
-            (fi, bi), (fj, bj) = pads[name]
-            if fi or bi or fj or bj:
-                # buffers are physical (K, I, J[, *dd])
-                pw = [(0, 0), (fi, bi), (fj, bj)] + [(0, 0)] * (v.ndim - 3)
-                v = jnp.pad(v, pw)
-            env2[name] = v
-        out = self._pallas_trace(
-            metas2,
-            env2,
-            scalars,
-            (dIp, dJp, dK),
-            periodic,
-            mask_domain=domain,
-        )
-        plan = LAST_PLAN.get(self.analysis.stencil.name)
-        if isinstance(plan, dict):
-            plan["repair"] = {
-                n: p for n, p in pads.items() if any(p[0]) or any(p[1])
-            }
-            if (dIp, dJp) != (dI, dJ):
-                plan["repair_domain"] = (dIp, dJp)
-        result = dict(env)
-        for name in self.written:
-            if name not in out or name not in metas:
-                continue
-            (fi, bi), (fj, bj) = pads[name]
-            m = metas[name]
-            ni, nj = m.shape[0], m.shape[1]
-            v = out[name]
-            if fi or bi or fj or bj:
-                v = v[:, fi : fi + ni, fj : fj + nj]
-            # domain padding computed garbage in the extra rows/columns
-            # of the write window: restore the original buffer content
-            # there (outside the TRUE write window the buffer must keep
-            # its pre-call values)
-            oi, oj, _ok = m.origin
-            orig = env[name]
-            if ni != 1 and dIp != dI:
-                g0, g1 = oi + dI, min(oi + dIp, ni)
-                if g1 > g0:
-                    v = v.at[:, g0:g1, :].set(orig[:, g0:g1, :])
-            if nj != 1 and dJp != dJ:
-                g0, g1 = oj + dJ, min(oj + dJp, nj)
-                if g1 > g0:
-                    v = v.at[:, :, g0:g1].set(orig[:, :, g0:g1])
-            result[name] = v
-        return result
-
-    def plan_tpu(self, metas, domain, periodic=()):
-        """ALIGNED-mode tile plan for these metas WITHOUT building or
-        executing a kernel: raises :class:`_PallasIneligible` exactly
-        when a chip run would fall back to the XLA executor, platform
-        independently (VERDICT r4 #2: TPU-only eligibility must be
-        CPU-testable).  Returns the LAST_PLAN-style dict, including the
-        ``repair`` pads when geometry repair is what keeps the kernel.
-        Limitation: the deep-K K-blocked fallback is not modeled -- this
-        is the single-kernel plan."""
-        from gt4py_tpu import config as _cfg
-
-        self._check_eligible(metas)
-        for n, decl in self.analysis.stencil.scalar_decls.items():
-            if decl.dtype is not None and np.dtype(decl.dtype).itemsize > 4:
-                raise _PallasIneligible()
-        env = {n: None for n in metas}
-        old = _cfg.ASSUME_TPU_PLANNING
-        _cfg.ASSUME_TPU_PLANNING = True
-
-        def _serialized_plan():
-            # mirror of _trace_serialized: the mixed-stencil VMEM rescue
-            child = self._serial_child()
-            if child is None:
-                return None
-            try:
-                plan = child.plan_tpu(metas, domain, periodic)
-            except _PallasIneligible:
-                return None
-            plan["serialized"] = True
-            return plan
-
-        try:
-            try:
-                self._pallas_trace(
-                    metas, env, {}, tuple(domain), periodic, plan_only=True
-                )
-            except _PlanOnlyDone as done:
-                return dict(done.plan)
-            except _PallasIneligible as err:
-                if not (
-                    err.args and err.args[0] == "geometry" and not periodic
-                ):
-                    plan = _serialized_plan()
-                    if plan is not None:
-                        return plan
-                    raise
-                repair = self._repair_pads(metas, domain)
-                if repair is None:
-                    plan = _serialized_plan()
-                    if plan is not None:
-                        return plan
-                    raise
-                pads, (dIp, dJp) = repair
-                if not self._repair_cost_ok(metas, pads, domain):
-                    # mirrors _trace_repaired: staged XLA is the measured
-                    # better choice -- an explicit decision, not a cliff
-                    return {
-                        "mode": "xla-by-cost",
-                        "repair": {
-                            n: p
-                            for n, p in pads.items()
-                            if any(p[0]) or any(p[1])
-                        },
-                        "repair_domain": (dIp, dJp),
-                    }
-                try:
-                    self._pallas_trace(
-                        self._padded_metas(metas, pads),
-                        env,
-                        {},
-                        (dIp, dJp, domain[2]),
-                        periodic,
-                        plan_only=True,
-                    )
-                except _PallasIneligible:
-                    plan = _serialized_plan()
-                    if plan is not None:
-                        return plan
-                    raise
-                except _PlanOnlyDone as done:
-                    plan = dict(done.plan)
-                    plan["repair"] = {
-                        n: p
-                        for n, p in pads.items()
-                        if any(p[0]) or any(p[1])
-                    }
-                    if (dIp, dJp) != tuple(domain[:2]):
-                        plan["repair_domain"] = (dIp, dJp)
-                    return plan
-            raise _PallasIneligible("plan-only: no plan produced")
-        finally:
-            _cfg.ASSUME_TPU_PLANNING = old
-
-    def _has_nonuniform_k(self) -> bool:
-        """Variable/absolute-K reads need the full K column in VMEM
-        (mode B) for the in-kernel K-gather."""
-        for node in ir.walk_values(self.analysis.stencil.vertical_loops):
-            if isinstance(node, ir.FieldAccess) and not isinstance(
-                node.offset, ir.CartesianOffset
-            ):
-                return True
-        return False
-
-    def _value_temp_names(self) -> frozenset:
-        """Temps the kernel can keep as SSA *values* instead of VMEM
-        scratch arrays: written by exactly one Assign, all accesses inside
-        one PARALLEL section, Cartesian offsets only, no data dims, the
-        write not under a ``while`` (the in-kernel while mutates refs and
-        discards env updates), and the defining top-level statement's
-        compute extent equal to the temp's alloc extent (so the single
-        write covers every later read window).
-
-        Payoff: no scratch allocation, no store+load VMEM round trip per
-        temp per point, and Mosaic's register allocator frees dead values
-        -- the tile planner's VMEM pressure drops from sum-of-all-temps
-        to the liveness peak (see ``_value_peak_bytes``)."""
-        if hasattr(self, "_vt_cache"):
-            return self._vt_cache
-        st = self.analysis.stencil
-        eligible = {n for n, d in st.temp_decls.items() if not d.data_dims}
-        writes: dict = {}
-        sections: dict = {}
-
-        def scan_stmt(stmt, li, si, top, in_while):
-            if isinstance(stmt, ir.Assign):
-                for acc in ir.field_accesses(stmt.value):
-                    if acc.name in eligible:
-                        sections.setdefault(acc.name, set()).add((li, si))
-                        if not isinstance(acc.offset, ir.CartesianOffset):
-                            eligible.discard(acc.name)
-                for d in stmt.target.data_index:
-                    for acc in ir.field_accesses(d):
-                        sections.setdefault(acc.name, set()).add((li, si))
-                n = stmt.target.name
-                if n in eligible:
-                    sections.setdefault(n, set()).add((li, si))
-                    writes.setdefault(n, []).append((top, in_while))
-                    if not isinstance(stmt.target.offset, ir.CartesianOffset):
-                        eligible.discard(n)
-                return
-            if isinstance(stmt, (ir.If, ir.While)):
-                for acc in ir.field_accesses(stmt.cond):
-                    if acc.name in eligible:
-                        sections.setdefault(acc.name, set()).add((li, si))
-                        if not isinstance(acc.offset, ir.CartesianOffset):
-                            eligible.discard(acc.name)
-                inner_while = in_while or isinstance(stmt, ir.While)
-                for s in stmt.body + getattr(stmt, "orelse", []):
-                    scan_stmt(s, li, si, top, inner_while)
-            elif isinstance(stmt, ir.HorizontalRestriction):
-                for s in stmt.body:
-                    scan_stmt(s, li, si, top, in_while)
-
-        def _full_interval(sec) -> bool:
-            iv = sec.interval
-            return (
-                not iv.is_runtime
-                and iv.start == ir.AxisBound.start(0)
-                and iv.end == ir.AxisBound.end(0)
-            )
-
-        for li, loop in enumerate(st.vertical_loops):
-            parallel = loop.loop_order == ir.LoopOrder.PARALLEL
-            for si, sec in enumerate(loop.sections):
-                for stmt in sec.body:
-                    scan_stmt(stmt, li, si, stmt, False)
-                    if not parallel:
-                        for node in ir.walk_values(stmt):
-                            if (
-                                isinstance(node, ir.FieldAccess)
-                                and node.name in eligible
-                            ):
-                                eligible.discard(node.name)
-                    elif not _full_interval(sec):
-                        # a write in a PARTIAL-K section cannot cover the
-                        # value's full column: the value-temp writeback
-                        # would need dynamic_update_slice on a value,
-                        # which Mosaic cannot lower (r4: concat_where
-                        # sections after per-section DCE) -- keep such
-                        # temps in VMEM scratch refs
-                        for node in ir.walk_values(stmt):
-                            if (
-                                isinstance(node, ir.Assign)
-                                and node.target.name in eligible
-                            ):
-                                eligible.discard(node.target.name)
-
-        out = set()
-        for name in eligible:
-            ws = writes.get(name, [])
-            if len(ws) != 1 or ws[0][1]:
-                continue
-            if len(sections.get(name, ())) != 1:
-                continue
-            # the write region (the defining unit's stmt extent) is always
-            # contained in the alloc extent, and reads never exceed it --
-            # a partial-cover write goes through the zeros+update path,
-            # which reproduces the zero-initialized scratch semantics
-            out.add(name)
-        self._vt_cache = frozenset(out)
-        return self._vt_cache
-
-    def _plane_temp_names(self) -> frozenset:
-        """Temps storable as a SINGLE K plane of scratch (serial loops,
-        zero K offsets, write-first sections -- passes.plane_local_temps).
-        Cached per backend instance."""
-        if not hasattr(self, "_pt_cache"):
-            from gt4py_tpu.cartesian import passes
-
-            self._pt_cache = passes.plane_local_temps(self.analysis.stencil)
-        return self._pt_cache
-
-    def _serial_child(self):
-        """Backend over the PARALLEL->FORWARD serialized stencil (see
-        passes.serialize_parallel_k); None when nothing to serialize or
-        unsafe.  Used as a VMEM rescue: mixed stencils whose mode-B plan
-        cannot hold whole-column Mosaic values re-plan all-serial with
-        per-plane values and plane-local temp scratch."""
-        if not hasattr(self, "_serial_child_backend"):
-            self._serial_child_backend = None
-            # policy: MIXED stencils only.  A pure-PARALLEL stencil that
-            # exceeds VMEM is well served by the staged-XLA fallback
-            # (XLA fuses elementwise chains); chip measurement of the
-            # fused dycore shows the serialized kernel roughly at XLA
-            # fallback parity for the mixed class, so the rescue keeps
-            # the kernel-path invariant without a perf cliff either way.
-            orders = {
-                vl.loop_order for vl in self.analysis.stencil.vertical_loops
-            }
-            mixed = ir.LoopOrder.PARALLEL in orders and len(orders) > 1
-            if mixed and _env_os.environ.get("GT4PY_TPU_PALLAS_SERIALIZE") != "0":
-                try:
-                    from gt4py_tpu.cartesian.analysis import analyze
-                    from gt4py_tpu.cartesian.passes import serialize_parallel_k
-
-                    ser = serialize_parallel_k(self.analysis.stencil)
-                    if ser is not None:
-                        self._serial_child_backend = PallasBackend(
-                            analyze(ser), self.options
-                        )
-                except Exception:
-                    pass
-        return self._serial_child_backend
-
-    def _trace_serialized(self, metas, env, scalars, domain, periodic):
-        """Run the serialized (all-serial) form as a Mosaic kernel, with
-        the same geometry-repair retry as the primary path; re-records the
-        child's plan under the parent stencil name with a ``serialized``
-        marker."""
-        child = self._serial_child()
-        if child is None:
-            raise _PallasIneligible()
-        try:
-            out = child._pallas_trace(metas, env, scalars, domain, periodic)
-        except _PallasIneligible as err:
-            if not (err.args and err.args[0] == "geometry" and not periodic):
-                raise
-            out = child._trace_repaired(metas, env, scalars, domain, periodic)
-        plan = LAST_PLAN.get(child.analysis.stencil.name)
-        if isinstance(plan, dict):
-            plan = dict(plan)
-            plan["serialized"] = True
-            LAST_PLAN[self.analysis.stencil.name] = plan
-        return out
-
-    def _value_liveness(self):
-        """(n_stmts, {name: [def_idx, last_idx]}) over top-level statements
-        for the value temps, for planner peak-VMEM accounting."""
-        if hasattr(self, "_vt_live"):
-            return self._vt_live
-        vts = self._value_temp_names()
-        spans: dict = {}
-        idx = 0
-        for loop in self.analysis.stencil.vertical_loops:
-            for sec in loop.sections:
-                for stmt in sec.body:
-                    for node in ir.walk_values(stmt):
-                        if (
-                            isinstance(node, ir.FieldAccess)
-                            and node.name in vts
-                        ):
-                            s = spans.setdefault(node.name, [idx, idx])
-                            s[1] = idx
-                    idx += 1
-        self._vt_live = (idx, spans)
-        return self._vt_live
-
-    def _value_peak_bytes(self, footprint) -> int:
-        """Max over program points of the live value temps' total bytes
-        (``footprint(name) -> bytes`` at the candidate tile size)."""
-        n, spans = self._value_liveness()
-        if not spans:
-            return 0
-        peak = 0
-        for t in range(n):
-            cur = sum(
-                footprint(name)
-                for name, (d0, d1) in spans.items()
-                if d0 <= t <= d1
-            )
-            peak = max(peak, cur)
-        return peak
-
-    def _f16_reads_all_widened(self, name: str) -> bool:
-        """True when every read of ``name`` is directly wrapped in a
-        Cast(float32) -- the canonical f16-storage form produced by
-        passes.widen_f16_compute.  Cached per backend instance."""
-        cache = self.__dict__.setdefault("_f16_widened_cache", {})
-        hit = cache.get(name)
-        if hit is not None:
-            return hit
-        f32 = np.dtype(np.float32)
-        wrapped_ids = set()
-        read_ids = set()
-        for node in ir.walk_values(self.analysis.stencil.vertical_loops):
-            if (
-                isinstance(node, ir.Cast)
-                and np.dtype(node.dtype) == f32
-                and isinstance(node.expr, ir.FieldAccess)
-                and node.expr.name == name
-            ):
-                wrapped_ids.add(id(node.expr))
-            if isinstance(node, ir.FieldAccess) and node.name == name:
-                read_ids.add(id(node))
-            if isinstance(node, ir.Assign) and node.target.name == name:
-                read_ids.discard(id(node.target))
-        ok = read_ids <= wrapped_ids
-        cache[name] = ok
-        return ok
-
-    def _read_names(self) -> set:
-        reads = set()
-        for node in ir.walk_values(self.analysis.stencil.vertical_loops):
-            if isinstance(node, ir.Assign):
-                for acc in ir.field_accesses(node.value):
-                    reads.add(acc.name)
-                for d in node.target.data_index:
-                    for acc in ir.field_accesses(d):
-                        reads.add(acc.name)
-            elif isinstance(node, (ir.If, ir.While)):
-                for acc in ir.field_accesses(node.cond):
-                    reads.add(acc.name)
-        return reads
-
-    def _circular_ok(self, metas, domain, aligned: bool) -> bool:
-        """Can this mode-A periodic-J kernel run in circular-J (roll) mode?
-
-        Circular mode evaluates every value over exactly the J domain (the
-        full periodic circle) and turns J offsets into lane rolls: no
-        128-lane padding waste on the VPU, no J-halo lanes in the tile DMA.
-        Requires that periodic wrap fully defines every J-halo read:
-        read+written fields with J extents (their *output* halos must hold
-        filled values for oracle parity) and stencils whose semantics
-        depend on non-periodic global J coordinates (regions, AxisPosition
-        J: a temp's extended-J halo image is computed at the *unwrapped*
-        coordinate by the oracle) stay on the windowed path.
-        """
-        _dI, dJ, _dK = domain
-        ext = self.analysis.extents
-        for node in ir.walk_values(self.analysis.stencil.vertical_loops):
-            if isinstance(node, ir.HorizontalRestriction):
-                return False
-            if isinstance(node, ir.AxisPosition) and node.axis == "J":
-                return False
-        written = set(self.written)
-        for name, m in metas.items():
-            e = ext.field_extent(name)
-            hj = (-e.j[0], e.j[1])
-            if any(h > 0 for h in hj):
-                if name in written:
-                    return False
-                if dJ < max(hj):
-                    return False  # oracle raises here; keep parity via prefill
-            if m.shape[1] != 1:
-                oj = m.origin[1]
-                if oj + dJ > m.shape[1]:
-                    return False
-                if aligned and (oj % _LANE or dJ % _LANE):
-                    return False
-        return True
-
-    def _all_parallel_full(self) -> bool:
-        for vl in self.analysis.stencil.vertical_loops:
-            if vl.loop_order != ir.LoopOrder.PARALLEL:
-                return False
-            if len(vl.sections) != 1 or not _full_interval(vl.sections[0].interval):
-                return False
-        return True
-
-    # ------------------------------------------------------------------ #
-    # tile planning
-    # ------------------------------------------------------------------ #
-
-    def _halos_ij(self, metas, aligned: bool, domain, expand_j: bool):
-        """Per-field (hi0, hi1, hj0, hj1) VMEM-tile halos; in aligned mode
-        the I (and optionally J) halos are expanded so DMA slice starts and
-        sizes land on the dtype's (sub, 128) tiling."""
-        dI, dJ, _ = domain
-        ext = self.analysis.extents
-        halos: Dict[str, Tuple[int, int, int, int]] = {}
-        for name, m in metas.items():
-            e = ext.alloc_extent(name)
-            hi0, hi1 = -e.i[0], e.i[1]
-            hj0, hj1 = -e.j[0], e.j[1]
-            if aligned:
-                sub = _sublane(m.dtype)
-                oi, oj, _ = m.origin
-                hi0 += (oi - hi0) % sub
-                if hi0 > oi:
-                    # expanded lower halo would start the DMA window
-                    # before the buffer (possible when oi < sub)
-                    raise _PallasIneligible("geometry")
-                if m.shape[0] != 1:
-                    hi1 += (-(hi0 + hi1)) % sub
-                    if oi + dI + hi1 > m.shape[0]:
-                        raise _PallasIneligible("geometry")
-                if expand_j:
-                    hj0 += (oj - hj0) % _LANE
-                    if hj0 > oj:
-                        raise _PallasIneligible("geometry")
-                    if m.shape[1] != 1 and (hj0 or hj1):
-                        hj1 += (-(hj0 + hj1)) % _LANE
-                        if oj + dJ + hj1 > m.shape[1]:
-                            raise _PallasIneligible("geometry")
-            halos[name] = (hi0, hi1, hj0, hj1)
-        return halos
-
-    def _sub_max(self, metas) -> int:
-        """Tile I-sizes must satisfy every DMA'd buffer's sublane packing
-        (temps are VMEM-only scratch: no DMA constraint)."""
-        return max((_sublane(m.dtype) for m in metas.values()), default=_SUBLANE)
-
-    def _plan_rows(
-        self,
-        metas,
-        domain,
-        aligned: bool,
-        circular: bool = False,
-        trim_j: bool = False,
-    ):
-        """Mode A (all-PARALLEL): K-tiled J-row tiles.
-
-        Tile = (TK + k-halo, TI + i-halo, J row) -- the full physical
-        row, or, with ``trim_j`` (non-periodic kernels), the row TRIMMED
-        after the last lane block the domain + halo can touch
-        (``roundup(oj + dJ + hj1, 128)``): buffers with alignment slack
-        beyond the interior stop paying DMA for it (~17% of read traffic
-        at the bench geometry).  In circular-J mode the window is exactly
-        the J domain (halo reads wrap as lane rolls).  Returns
-        (TK, TI, halos, slots) or raises _PallasIneligible.
-        """
-        dI, dJ, dK = domain
-        ext = self.analysis.extents
-        subx = self._sub_max(metas)
-
-        halos = self._halos_ij(metas, aligned, domain, expand_j=False)
-        if circular:
-            halos = {n: (h[0], h[1], 0, 0) for n, h in halos.items()}
-
-        def row_nj(name, m):
-            if m.shape[1] == 1:
-                return 1
-            if circular:
-                return dJ
-            if trim_j:
-                oj = m.origin[1]
-                hj1 = halos[name][3]
-                win = oj + dJ + hj1
-                if aligned:
-                    win = -(-win // _LANE) * _LANE
-                return min(m.shape[1], win)
-            return m.shape[1]
-
-        if aligned and not circular:
-            # J windows DMA from lane 0: Mosaic needs the slice SIZE
-            # tiling-aligned (trimmed windows round up to lanes; full
-            # rows must be lane multiples themselves)
-            for name, m in metas.items():
-                if m.shape[1] != 1 and row_nj(name, m) % _LANE:
-                    raise _PallasIneligible("geometry")
-
-        reads_set = self._read_names()
-
-        def vmem_bytes(tk, ti, slots=2):
-            total = 0
-            max_val = 0
-            for name, m in metas.items():
-                hi0, hi1, _, _ = halos[name]
-                e = ext.alloc_extent(name)
-                sk = 1 if m.shape[2] == 1 else min(tk - e.k[0] + e.k[1], m.shape[2])
-                ni = 1 if m.shape[0] == 1 else ti + hi0 + hi1
-                nj = row_nj(name, m)
-                pi, pj = _pad_tile(ni, nj, _sublane(m.dtype))
-                total += slots * sk * pi * pj * m.dtype.itemsize  # buffering
-                if name in self.written:
-                    si, sj = _pad_tile(
-                        1 if ni == 1 else ti, min(nj, dJ), _sublane(m.dtype)
-                    )
-                    total += slots * sk * si * sj * m.dtype.itemsize  # staging
-                elif (
-                    _f16_unpack_enabled()
-                    and m.dtype.itemsize == 2
-                    and name in reads_set
-                    and self._f16_reads_all_widened(name)
-                ):
-                    # f16 storage: the un-slotted f32 unpack copy
-                    pi32, pj32 = _pad_tile(ni, nj, _sublane(np.dtype(np.float32)))
-                    total += sk * pi32 * pj32 * 4
-                max_val = max(max_val, sk * pi * pj * m.dtype.itemsize)
-            value_temps = self._value_temp_names()
-
-            def temp_bytes(name):
-                decl = self.analysis.stencil.temp_decls[name]
-                e = ext.alloc_extent(name)
-                tnj = dJ if circular else dJ - e.j[0] + e.j[1]
-                pi, pj = _pad_tile(
-                    ti - e.i[0] + e.i[1], tnj, _sublane(decl.dtype)
-                )
-                return (
-                    (tk - e.k[0] + e.k[1]) * pi * pj * np.dtype(decl.dtype).itemsize
-                )
-
-            for name in self.analysis.stencil.temp_decls:
-                if name not in value_temps:
-                    total += temp_bytes(name)
-            # SSA value temps cost their LIVENESS PEAK, not the sum:
-            # Mosaic frees dead values
-            total += self._value_peak_bytes(temp_bytes)
-            # whole-tile intermediate values live on the Mosaic value stack
-            total += _live_values(self.analysis.stencil) * max_val
-            return total
-
-        def traffic_bytes(tk, ti):
-            """Estimated HBM bytes per kernel run: window reads (halo
-            amplification!) + staged writes + a fixed per-tile overhead
-            (DMA issue/semaphore costs, calibrated ~64KB-equivalent)."""
-            tiles = (dK // tk) * (dI // ti)
-            k_t = tk != dK
-            per_tile = 0
-            for name, m in metas.items():
-                hi0, hi1, _, _ = halos[name]
-                e = ext.alloc_extent(name)
-                if m.shape[2] == 1:
-                    sk = 1
-                elif k_t:
-                    sk = min(tk - e.k[0] + e.k[1], m.shape[2])
-                else:
-                    sk = m.shape[2]
-                ni = 1 if m.shape[0] == 1 else ti + hi0 + hi1
-                nj = row_nj(name, m)
-                per_tile += sk * ni * nj * m.dtype.itemsize
-                if name in self.written:
-                    wk = 1 if m.shape[2] == 1 else (tk if k_t else m.shape[2])
-                    per_tile += (
-                        wk
-                        * (1 if m.shape[0] == 1 else ti)
-                        * min(nj, dJ)
-                        * m.dtype.itemsize
-                    )
-            # fields with a K column but a single K tile are re-read whole
-            # per K step only when k is tiled; with tk == dK the outer k
-            # loop is 1, so `tiles` already accounts for everything
-            return per_tile * tiles + tiles * 64 * 1024
-
-        tk_options = sorted(_divisors(dK), reverse=True)
-        if aligned:
-            ti_options = [
-                t for t in sorted(_divisors(dI), reverse=True) if t % subx == 0
-            ]
-        else:
-            ti_options = sorted(
-                (d for d in _divisors(dI) if d >= min(8, dI)), reverse=True
-            )
-        if not ti_options:
-            # e.g. dI = 2 x prime: no sublane-divisible tile exists --
-            # repairable by computing over a rounded-up domain
-            raise _PallasIneligible("geometry")
-        # experimental overrides for perf sweeps (unset = planner choice)
-        import os
-
-        f_tk = os.environ.get("GT4PY_TPU_PALLAS_TK")
-        f_ti = os.environ.get("GT4PY_TPU_PALLAS_TI")
-        f_slots = os.environ.get("GT4PY_TPU_PALLAS_SLOTS")
-        if f_tk:
-            tk_options = [t for t in tk_options if t == int(f_tk)]
-        if f_ti:
-            ti_options = [t for t in ti_options if t == int(f_ti)]
-        slot_options = (int(f_slots),) if f_slots else (2, 1)
-        # prefer double-buffered (pipelined) plans; a single-slot plan
-        # (inputs loaded at tile start, latency exposed) is the fallback
-        # that keeps VMEM-tight stencils on the kernel path at all
-        for slots in slot_options:
-            best = None
-            for tk in tk_options:
-                for ti in ti_options:
-                    if vmem_bytes(tk, ti, slots) <= _VMEM_BUDGET:
-                        # minimize estimated traffic (halo amplification +
-                        # per-tile overhead); tiebreak on fewer tiles
-                        score = (traffic_bytes(tk, ti), (dK // tk) * (dI // ti))
-                        if best is None or score < best[0]:
-                            best = (score, tk, ti)
-            if best is not None:
-                return best[1], best[2], halos, slots
-        raise _PallasIneligible()
-
-    def _k_window(self, metas, domain, k_win: bool):
-        """Per-field K tile window for mode B: with ``k_win`` the tile
-        holds only the ``[origin_k - kb0, origin_k + dK + kb1)`` planes of
-        the buffer (interval-aware bounds, origin-validated to exist)
-        instead of the whole column -- buffers with K pads stop paying for
-        them, and K-blocked serial passes (sub-dK domains with shifted K
-        origins) become possible.  Nonuniform-K stencils keep the full
-        column: their clipped gathers address the WHOLE buffer (oracle
-        semantics clip at buffer edges, numpy_backend._eval_variable_k)."""
-        from gt4py_tpu.cartesian.analysis import compute_k_boundary_resolved
-
-        dK = domain[2]
-        # dK-RESOLVED boundaries: sections ending at fixed offsets from
-        # START (concat_where cuts) have dK-dependent beyond-domain reach
-        # the static analysis.k_boundary cannot express (fuzz seed 4076)
-        kb_resolved = compute_k_boundary_resolved(
-            self.analysis.stencil, dK, extents=self.analysis.extents
-        )
-        wins: Dict[str, Tuple[int, int]] = {}  # name -> (sk, okt)
-        for name, m in metas.items():
-            if m.shape[2] == 1:
-                wins[name] = (1, 0)
-            elif not k_win:
-                wins[name] = (m.shape[2], m.origin[2])
-            else:
-                kb0, kb1 = kb_resolved.get(name, (0, 0))
-                wins[name] = (dK + kb0 + kb1, kb0)
-        return wins
-
-    def _plan_columns(self, metas, domain, aligned: bool, k_win: bool = False):
-        """Mode B (serial-K stencils): (TI, TJ) tiles with the K column
-        (full buffer, or the domain window when ``k_win``) in VMEM."""
-        dI, dJ, dK = domain
-        ext = self.analysis.extents
-        subx = self._sub_max(metas)
-        halos = self._halos_ij(metas, aligned, domain, expand_j=True)
-        kwins = self._k_window(metas, domain, k_win)
-
-        # serial sections evaluate K planes; PARALLEL sections evaluate
-        # whole columns on the value stack
-        has_parallel = any(
-            vl.loop_order == ir.LoopOrder.PARALLEL
-            for vl in self.analysis.stencil.vertical_loops
-        )
-
-        reads_set = self._read_names()
-
-        def vmem_bytes(ti, tj, slots=2):
-            total = 0
-            max_val = 0
-            for name, m in metas.items():
-                hi0, hi1, hj0, hj1 = halos[name]
-                sk = kwins[name][0]
-                ni = 1 if m.shape[0] == 1 else ti + hi0 + hi1
-                nj = 1 if m.shape[1] == 1 else tj + hj0 + hj1
-                pi, pj = _pad_tile(ni, nj, _sublane(m.dtype))
-                total += slots * sk * pi * pj * m.dtype.itemsize
-                if name in self.written:
-                    si, sj = _pad_tile(
-                        1 if ni == 1 else ti,
-                        1 if nj == 1 else tj,
-                        _sublane(m.dtype),
-                    )
-                    if m.shape[2] == 1:
-                        stage_k = 1
-                    else:
-                        stage_k = dK if k_win else m.shape[2]
-                    total += slots * stage_k * si * sj * m.dtype.itemsize
-                elif (
-                    _f16_unpack_enabled()
-                    and m.dtype.itemsize == 2
-                    and name in reads_set
-                    and self._f16_reads_all_widened(name)
-                ):
-                    # f16 storage: the un-slotted f32 unpack copy
-                    pi32, pj32 = _pad_tile(ni, nj, _sublane(np.dtype(np.float32)))
-                    total += sk * pi32 * pj32 * 4
-                skv = sk if has_parallel else min(sk, _SUBLANE)
-                max_val = max(max_val, skv * pi * pj * m.dtype.itemsize)
-            value_temps = self._value_temp_names()
-            plane_temps = self._plane_temp_names()
-
-            def temp_bytes(name):
-                decl = self.analysis.stencil.temp_decls[name]
-                e = ext.alloc_extent(name)
-                pi, pj = _pad_tile(
-                    ti - e.i[0] + e.i[1],
-                    tj - e.j[0] + e.j[1],
-                    _sublane(decl.dtype),
-                )
-                sk = 1 if name in plane_temps else dK - e.k[0] + e.k[1]
-                return sk * pi * pj * np.dtype(decl.dtype).itemsize
-
-            for name in self.analysis.stencil.temp_decls:
-                if name not in value_temps:
-                    total += temp_bytes(name)
-            total += self._value_peak_bytes(temp_bytes)
-            total += _live_values(self.analysis.stencil) * max_val
-            return total
-
-        if aligned:
-            tj_options = [t for t in (256, 128) if dJ % t == 0]
-            ti_options = [
-                t
-                for t in sorted(_divisors(dI), reverse=True)
-                if t % subx == 0 and t <= 512
-            ]
-        else:
-            tj_options = sorted(
-                (d for d in _divisors(dJ) if d >= min(8, dJ)), reverse=True
-            )
-            ti_options = sorted(
-                (d for d in _divisors(dI) if d >= min(8, dI)), reverse=True
-            )
-
-        if not tj_options or not ti_options:
-            raise _PallasIneligible("geometry")  # untileable domain size
-        for slots in (2, 1):
-            for tj in tj_options:
-                for ti in ti_options:
-                    if vmem_bytes(ti, tj, slots) <= _VMEM_BUDGET:
-                        return ti, tj, halos, slots
-        raise _PallasIneligible()
-
-    # ------------------------------------------------------------------ #
-    # K-blocked serial passes (deep-K stencils that exceed VMEM as whole
-    # columns).  TPU analog of the reference's FillFlushToLocalKCaches
-    # (gtc/passes/oir_optimizations/caches.py:256): each vertical loop
-    # becomes one pass, K-carried temporaries are promoted to HBM buffers
-    # (the fill/flush targets), and each pass executes as a sequence of
-    # mode-B kernels over K blocks.  Serial carries across blocks need no
-    # special plumbing: block b's tile window includes the [b0-kb0, b0)
-    # planes of the threaded buffer, which already hold block b-1's
-    # results, and reads above the block see pre-update values exactly as
-    # the plane-by-plane oracle does.
-    # ------------------------------------------------------------------ #
-
-    _KB_CANDIDATES = (512, 256, 128, 64, 32, 16, 8)
-
-    def _trace_kblocked(self, metas, env, scalars, domain, periodic=()):
-        import jax.numpy as jnp
-
-        from gt4py_tpu.cartesian import passes
-        from gt4py_tpu.cartesian.analysis import analyze
-
-        stencil = self.analysis.stencil
-        dI, dJ, dK = domain
-        if dK < 2 or self._has_nonuniform_k():
-            raise _PallasIneligible()
-        for vl in stencil.vertical_loops:
-            for sec in vl.sections:
-                if sec.interval.is_runtime:
-                    raise _PallasIneligible()
-
-        pass_stencils, promoted = passes.split_serial_passes(stencil)
-        ext = self.analysis.extents
-        for name in promoted:
-            e = ext.alloc_extent(name)
-            if e.i != (0, 0) or e.j != (0, 0):
-                # the kernel writes interiors only; promoted temps with IJ
-                # halos would need extended API writes
-                raise _PallasIneligible()
-
-        if periodic:
-            # all wrap-needing fields are prefilled up front (mode-B
-            # semantics: the oracle fills halos from pre-update values)
-            env = dict(env)
-            env.update(self._periodic_fill_env(metas, env, domain, periodic))
-
-        env = dict(env)
-        metas_all = dict(metas)
-        for name in promoted:
-            e = ext.alloc_extent(name)
-            decl = stencil.temp_decls[name]
-            sk = dK - e.k[0] + e.k[1]
-            env[name] = jnp.zeros((sk, dI, dJ), dtype=decl.dtype)
-            metas_all[name] = _FieldMeta(
-                shape=(dI, dJ, sk),
-                origin=(0, 0, -e.k[0]),
+                shape=(
+                    domain[0] - e.i[0] + e.i[1],
+                    domain[1] - e.j[0] + e.j[1],
+                    domain[2] - e.k[0] + e.k[1],
+                ),
+                origin=(-e.i[0], -e.j[0], -e.k[0]),
                 dtype=np.dtype(decl.dtype),
                 dimensions=(True, True, True),
                 data_ndim=0,
             )
+        return out
 
-        kb_used = []
-        for pstencil in pass_stencils:
-            pan = analyze(pstencil)
-            accessed = [
-                n for n, info in pan.field_info.items()
-                if info.access.value and n in env
-            ]
-            sub_env = {n: env[n] for n in accessed}
-            sub_metas = {n: metas_all[n] for n in accessed}
-            backward = any(
-                vl.loop_order == ir.LoopOrder.BACKWARD
-                for vl in pstencil.vertical_loops
-            )
-            done = False
-            last_err = None
-            for KB in (dK,) + tuple(k for k in self._KB_CANDIDATES if k < dK):
-                try:
-                    out_env = self._run_k_blocks(
-                        pstencil, KB, sub_metas, sub_env, scalars,
-                        domain, backward,
-                    )
-                    kb_used.append(KB)
-                    done = True
-                    break
-                except _PallasIneligible as err:
-                    last_err = err
-                    continue
-            if not done:
-                raise last_err or _PallasIneligible()
-            env.update(out_env)
-
-        LAST_PLAN[stencil.name] = {
-            "kblocked": True,
-            "passes": len(pass_stencils),
-            "KB": kb_used,
-            "promoted": sorted(promoted),
-        }
-        # promoted buffers are internal: return only the caller's fields
-        return {n: v for n, v in env.items() if n not in promoted}
-
-    def _run_k_blocks(
-        self, pstencil, KB, sub_metas, sub_env, scalars, domain, backward
-    ):
-        from gt4py_tpu.cartesian import passes
-        from gt4py_tpu.cartesian.analysis import analyze
-
+    def plan(self, metas, domain, scalars=None):
+        """The kernel plan for one call geometry: stages, storage classes
+        and per-stage block plans (pure: no tracing)."""
+        stencil = self.analysis.stencil
         dI, dJ, dK = domain
-        cur = dict(sub_env)
-        blocks = [(b, min(b + KB, dK)) for b in range(0, dK, KB)]
-        if backward:
-            blocks.reverse()
-        plans = []
-        for b0, b1 in blocks:
-            bst = passes.clip_stencil_to_k_block(
-                pstencil, b0, b1, dK, scalars
-            )
-            if bst is None:
+        for name in self.written:
+            m = metas.get(name)
+            if m is None:
                 continue
-            ban = analyze(bst)
-            bb = PallasBackend(ban, self.options)
-            bmetas = {}
-            benv = {}
-            for n, info in ban.field_info.items():
-                if not info.access.value or n not in cur:
-                    continue
-                m = sub_metas[n]
-                bmetas[n] = _FieldMeta(
-                    shape=m.shape,
-                    origin=(m.origin[0], m.origin[1], m.origin[2] + b0),
-                    dtype=m.dtype,
-                    dimensions=m.dimensions,
-                    data_ndim=m.data_ndim,
-                )
-                benv[n] = cur[n]
-            plans.append((bb, bmetas, benv, b1 - b0))
-        # sequential: block b+1's window reads block b's written planes
-        for bb, bmetas, benv, kb in plans:
-            benv = {n: cur[n] for n in benv}
-            out = bb._pallas_trace(bmetas, benv, scalars, (dI, dJ, kb), ())
-            for n in bb.written:
-                if n in out:
-                    cur[n] = out[n]
-        return cur
+            if (m.shape[0] == 1 and dI > 1) or (m.shape[1] == 1 and dJ > 1):
+                raise _PallasIneligible("written field without an I or J axis")
+        stages = plan_stages(stencil, self.analysis.extents, dK, scalars or {})
+        if not stages:
+            raise _PallasIneligible("empty stencil")
+        values, carries = plan_storage(stencil, stages)
+        itemsize = max(
+            [np.dtype(m.dtype).itemsize for m in metas.values()]
+            + [np.dtype(d.dtype).itemsize for d in stencil.temp_decls.values()]
+            + [4]
+        )
+        blocks = []
+        for st in stages:
+            ni = dI - st.ext.i[0] + st.ext.i[1]
+            nj = dJ - st.ext.j[0] + st.ext.j[1]
+            blocks.append(plan_blocks(ni, nj, itemsize))
+        return stages, values, carries, blocks
 
-    # ------------------------------------------------------------------ #
+    def _pallas_trace(self, metas, env, scalars, domain, periodic=()):
+        import jax
 
-    def _pallas_trace(
-        self,
-        metas,
-        env,
-        scalars,
-        domain,
-        periodic=(),
-        plan_only=False,
-        mask_domain=None,
-    ):
+        if periodic:
+            env = self._periodic_fill_env(metas, env, domain, periodic)
+        stages, values, carries, blocks = self.plan(metas, domain, scalars)
+        metas = {**metas, **self._temp_metas(domain)}
+        env = dict(env)
+        interpret = jax.devices()[0].platform == "cpu"
+        for index, (stage, bp) in enumerate(zip(stages, blocks)):
+            env = self._run_stage(
+                index, stage, bp, metas, env, scalars, domain, values, carries,
+                interpret,
+            )
+        LAST_PLAN[self.analysis.stencil.name] = {
+            "stages": len(stages),
+            "sweeps": [
+                [(sw.order.name, sw.k0, sw.k1, len(sw.stmts)) for sw in st.sweeps]
+                for st in stages
+            ],
+            "blocks": [(bp.bi, bp.bj) for bp in blocks],
+            "values": sorted(values),
+            "carries": sorted(
+                {n for c in carries.values() for n in c}
+            ),
+        }
+        return env
+
+    def _run_stage(self, index, stage, bp, metas, env, scalars, domain, values,
+                   carries, interpret):
         import jax
         import jax.numpy as jnp
         from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
+        from jax.experimental.pallas import triton as plgpu
 
-        self._check_eligible(metas)
-        dI, dJ, dK = domain
-        # under geometry repair the kernel iterates a ROUNDED-UP domain:
-        # horizontal-region masks must still resolve END against the
-        # TRUE domain (the extra rows are discarded at splice-back) --
-        # anchoring them at the padded END writes boundary regions into
-        # rows the user never sees and leaves the true boundary rows on
-        # the base branch (found by the r5 unaligned on-chip fuzz leg,
-        # seed 8003)
-        mask_domain = mask_domain or domain
-
-        interpret = jax.devices()[0].platform != "tpu"
-        # ASSUME_TPU_PLANNING engages every aligned-mode eligibility and
-        # planning gate on CPU (kernels still run in interpret mode), so
-        # TPU-only planning divergence is CPU-testable (VERDICT r4 #2)
-        aligned = (not interpret) or config.ASSUME_TPU_PLANNING
-        if aligned:
-            # Mosaic has no 64-bit types; fall back to the XLA executor.
-            # 16-bit dtypes run in-kernel: the planner is packing-aware
-            # (bf16/f16 buffers DMA at the (16, 128) tiling).
-            for m in metas.values():
-                if m.dtype.itemsize > 4:
-                    raise _PallasIneligible()
-            for decl in self.analysis.stencil.temp_decls.values():
-                if np.dtype(decl.dtype).itemsize > 4:
-                    raise _PallasIneligible()
-
+        reads, writes = _accesses([s for sw in stage.sweeps for s in sw.stmts])
+        written = sorted({w.name for w in writes if w.name not in values})
+        read_only = sorted(
+            {r.name for r in reads if r.name not in values} - set(written)
+        )
+        for n in written + read_only:
+            if n not in env:  # global temporary: zero-initialised buffer
+                env[n] = jnp.zeros(_phys_shape(metas[n].shape), metas[n].dtype)
+        arr_scalars = sorted(
+            n for n, v in scalars.items() if isinstance(v, jax.Array)
+        )
+        dI, dJ, _ = domain
+        ei, ej = stage.ext.i, stage.ext.j
+        ni, nj = dI - ei[0] + ei[1], dJ - ej[0] + ej[1]
+        grid = (pl.cdiv(ni, bp.bi), pl.cdiv(nj, bp.bj))
         analysis = self.analysis
-        ext = analysis.extents
-        field_names = sorted(env.keys())
-        written = [n for n in self.written if n in env]
-        reads = self._read_names()
-        scalar_names = sorted(
-            n for n in analysis.parameter_info if scalars.get(n) is not None
-        )
+        nw, nr = len(written), len(read_only)
 
-        mode_a = self._all_parallel_full() and not self._has_nonuniform_k()
-        # circular-J: periodic mode-A kernels window exactly the J domain
-        # and wrap J-offset reads as lane rolls (see _circular_ok)
-        circular = (
-            mode_a
-            and "J" in periodic
-            and self._circular_ok(metas, domain, aligned)
-        )
-        # non-periodic mode-A windows trim the J row after the last lane
-        # block the domain + halo touches (alignment slack stops costing
-        # DMA); periodic wrap/prefill needs the full row geometry
-        trim_j = not periodic and _os_env_trim()
-        if mode_a:
-            try:
-                TK, TI, halos, slots = self._plan_rows(
-                    metas, domain, aligned, circular, trim_j=trim_j
-                )
-                TJ = dJ
-            except _PallasIneligible:
-                mode_a = False
-                circular = False
-        # mode B loads only the [ok - kb0, ok + dK + kb1) K window of each
-        # buffer (interval-aware k_boundary) unless nonuniform-K gathers
-        # need the whole column for oracle-parity edge clipping
-        k_win = not mode_a and not self._has_nonuniform_k()
-        if not mode_a:
-            TI, TJ, halos, slots = self._plan_columns(
-                metas, domain, aligned, k_win
-            )
-            TK = dK
-        import os as _os
-        if _os.environ.get("GT4PY_TPU_PALLAS_SLOTS") == "1":
-            slots = 1  # force the unpipelined form (tests / experiments)
-        # ---- periodic boundaries: wrapped-window DMA planning ---- #
-        # In mode A the row window already fetches the padding/halo lanes,
-        # so wrapping reads costs ZERO extra traffic: the window is split
-        # into segments and the edge segments' *sources* point at the
-        # opposite interior edge.  Fields the kernel cannot wrap (read+
-        # written parity, mode B, geometry constraints) are pre-filled
-        # functionally before the kernel (same semantics, extra copies).
-        wrap_i: Dict[str, bool] = {}
-        wrap_j: Dict[str, List[Tuple[int, int, int]]] = {}  # (dst, src, size)
-        prefill: set = set()
-        if periodic:
-            read_written = set(written) & reads
-            for name, m in metas.items():
-                e = ext.field_extent(name)
-                rh_i = (-e.i[0], e.i[1])
-                rh_j = (-e.j[0], e.j[1])
-                need_i = "I" in periodic and m.shape[0] != 1 and any(rh_i)
-                # circular mode wraps all J reads as rolls -- nothing to fill
-                need_j = (
-                    "J" in periodic and m.shape[1] != 1 and any(rh_j)
-                    and not circular
-                )
-                if not (need_i or need_j):
-                    continue
-                if name in read_written or not mode_a:
-                    # read+written: the (filled) halo must appear in the
-                    # output for oracle parity -- wrap can't provide that
-                    prefill.add(name)
-                    continue
-                hi0, hi1, hj0, hj1 = halos[name]
-                oi, oj, _ok = m.origin
-                ok_i = ok_j = True
-                if need_i:
-                    sub = _sublane(m.dtype)
-                    ok_i = (
-                        hi0 <= oi
-                        and dI >= max(hi0, hi1)
-                        and oi + dI + hi1 <= m.shape[0]
-                        # wrapped segments DMA at in-tile starts hi0 /
-                        # ni-hi1: those must sit on the packing too
-                        and (
-                            not aligned
-                            or (dI % sub == 0 and hi0 % sub == 0 and hi1 % sub == 0)
-                        )
-                    )
-                if need_j:
-                    if aligned:
-                        blk = _LANE
-                        ok_j = (
-                            oj % _LANE == 0
-                            and oj >= blk
-                            and dJ % _LANE == 0
-                            and dJ >= blk
-                            and oj + dJ + blk <= m.shape[1]
-                            and max(hj0, hj1) <= blk
-                        )
-                    else:
-                        ok_j = (
-                            hj0 <= oj
-                            and oj + dJ + hj1 <= m.shape[1]
-                            and dJ >= max(hj0, hj1)
-                        )
-                if (need_i and not ok_i) or (need_j and not ok_j):
-                    prefill.add(name)
-                    continue
-                if need_i:
-                    wrap_i[name] = True
-                if need_j:
-                    if aligned:
-                        wrap_j[name] = [
-                            (oj - _LANE, oj + dJ - _LANE, _LANE),
-                            (oj, oj, dJ),
-                            (oj + dJ, oj, _LANE),
-                        ]
-                    else:
-                        segs = []
-                        if hj0:
-                            segs.append((oj - hj0, oj + dJ - hj0, hj0))
-                        segs.append((oj, oj, dJ))
-                        if hj1:
-                            segs.append((oj + dJ, oj, hj1))
-                        wrap_j[name] = segs
-            if prefill and not plan_only:
-                env = dict(env)
-                env.update(
-                    self._periodic_fill_env(metas, env, domain, periodic, prefill)
-                )
-
-        LAST_PLAN[self.analysis.stencil.name] = {
-            "mode_a": mode_a, "circular": circular,
-            "TI": TI, "TJ": TJ, "TK": TK, "slots": slots,
-            "trim_j": bool(trim_j and mode_a),
-        }
-        if len(LAST_PLAN) > 1024:  # bounded: long-running sweeps
-            for k in list(LAST_PLAN)[:512]:
-                del LAST_PLAN[k]
-        if plan_only:
-            raise _PlanOnlyDone(LAST_PLAN[self.analysis.stencil.name])
-
-        import os as _os
-        if _os.environ.get("GT4PY_TPU_PALLAS_DEBUG"):
-            print(
-                f"[pallas] {self.analysis.stencil.name}: mode_a={mode_a} "
-                f"circular={circular} TI={TI} TJ={TJ} TK={TK} slots={slots} "
-                f"halos={halos} "
-                f"origins={ {n: m.origin for n, m in metas.items()} }"
-                + (
-                    f" periodic={sorted(periodic)} wrap_i={sorted(wrap_i)} "
-                    f"wrap_j={sorted(wrap_j)} prefill={sorted(prefill)}"
-                    if periodic
-                    else ""
-                ),
-                flush=True,
-            )
-
-        # K-halos (only when K is actually tiled; mode A with a single K
-        # tile keeps the whole buffer column so k-offset halo planes stay
-        # addressable, exactly like full-column mode B)
-        k_tiled = mode_a and TK != dK
-        khalos: Dict[str, Tuple[int, int]] = {}
-        if k_win:
-            from gt4py_tpu.cartesian.analysis import compute_k_boundary_resolved
-
-            kb_resolved = compute_k_boundary_resolved(
-                self.analysis.stencil, dK, extents=self.analysis.extents
-            )
-        for name, m in metas.items():
-            if k_tiled and m.shape[2] != 1:
-                e = ext.alloc_extent(name)
-                # safe: mode A requires full intervals, so the validated
-                # k boundary equals the k extent hull
-                khalos[name] = (-e.k[0], e.k[1])
-            elif k_win and m.shape[2] != 1:
-                khalos[name] = kb_resolved.get(name, (0, 0))
-            else:
-                khalos[name] = (0, 0)
-
-        grid = (
-            (dK // TK, dI // TI) if mode_a else (dI // TI, dJ // TJ)
-        )
-        G1 = grid[1]
-        T = grid[0] * grid[1]
-
-        # ---- tile-local logical metas (origin = halo width) ---- #
-        tile_metas: Dict[str, _FieldMeta] = {}
-        tile_shapes: Dict[str, Tuple[int, int, int]] = {}
-        for name in field_names:
-            m = metas[name]
-            hi0, hi1, hj0, hj1 = halos[name]
-            hk0, hk1 = khalos[name]
-            ni = 1 if m.shape[0] == 1 else TI + hi0 + hi1
-            if m.shape[1] == 1:
-                nj, ojt = 1, 0
-            elif circular:
-                # circular: the window is exactly the J domain (the circle)
-                nj, ojt = dJ, 0
-            elif mode_a:
-                nj, ojt = m.shape[1], m.origin[1]
-                if trim_j:
-                    win = m.origin[1] + dJ + hj1
-                    if aligned:
-                        win = -(-win // _LANE) * _LANE
-                    nj = min(nj, win)
-            else:
-                nj, ojt = TJ + hj0 + hj1, hj0
-            if m.shape[2] == 1:
-                sk, okt = 1, 0
-            elif k_tiled:
-                # tile covers [ok + gk - hk0, ok + gk + TK + hk1): in-bounds
-                # because the k boundary validation guarantees the halo room
-                sk, okt = TK + hk0 + hk1, hk0
-            elif k_win:
-                # static window [ok - hk0, ok + dK + hk1): origin-validated
-                sk, okt = dK + hk0 + hk1, hk0
-            else:
-                sk, okt = m.shape[2], m.origin[2]
-            tile_metas[name] = _FieldMeta(
-                shape=(ni, nj, sk),
-                origin=(hi0 if ni > 1 else 0, ojt, okt),
-                dtype=m.dtype,
-                dimensions=m.dimensions,
-                data_ndim=0,
-            )
-            tile_shapes[name] = (sk, ni, nj)
-
-        n_scalars = len(scalar_names)
-        n_fields = len(field_names)
-        n_written = len(written)
-
-        # ---- static DMA segment plans (wrapped windows split the copy) ---- #
-        def _plan_segments(name):
-            m = metas[name]
-            hi0, hi1, _hj0, _hj1 = halos[name]
-            _sk, ni, nj = tile_shapes[name]
-            if m.shape[0] == 1:
-                isegs = [("all", 0, 1)]
-            elif wrap_i.get(name):
-                isegs = []
-                if hi0:
-                    isegs.append(("top", 0, hi0))
-                isegs.append(("mid", hi0, ni - hi0 - hi1))
-                if hi1:
-                    isegs.append(("bot", ni - hi1, hi1))
-            else:
-                isegs = [("win", 0, ni)]
-            if m.shape[1] == 1:
-                jsegs = [("all", 0, 0, 1)]
-            elif circular:
-                # one static interior segment: the whole periodic circle
-                jsegs = [("seg", 0, m.origin[1], nj)]
-            elif name in wrap_j:
-                jsegs = [("seg", d, s, z) for (d, s, z) in wrap_j[name]]
-            elif nj == m.shape[1]:
-                jsegs = [("all", 0, 0, nj)]
-            elif mode_a:
-                # trimmed mode-A row: a PREFIX of the physical row (the
-                # "win" kind would offset by oj-hj0, which mode A's raw
-                # J halos do not lane-align)
-                jsegs = [("seg", 0, 0, nj)]
-            else:
-                jsegs = [("win", 0, 0, nj)]
-            return isegs, jsegs
-
-        segments = {name: _plan_segments(name) for name in field_names}
-        max_segs = max(len(i) * len(j) for i, j in segments.values())
-
-        # written fields never read anywhere alias their input buffer in
-        # place (no splice); requires naturally aligned interior starts
-        def _can_alias(name):
-            if name in reads:
-                return False
-            m = metas[name]
-            if aligned:
-                sub = _sublane(m.dtype)
-                oi, oj, _ = m.origin
-                if m.shape[0] != 1 and (oi % sub or TI % sub):
-                    return False
-                if m.shape[1] != 1 and (oj % _LANE or (TJ % _LANE if not mode_a else dJ % _LANE)):
-                    return False
-            return True
-
-        import os as _os
-
-        if _os.environ.get("GT4PY_TPU_PALLAS_NO_ALIAS"):
-            aliased = {name: False for name in written}
-        else:
-            aliased = {name: _can_alias(name) for name in written}
-
-        # f16 STORAGE unpack: read-only 16-bit fields are converted to ONE
-        # f32 VMEM copy per tile right after the DMA wait, so every read
-        # slices f32 (the canonical per-read widens of the storage-format
-        # semantics become no-ops, and circular-J rolls run native f32).
-        # bf16 then pays only where it wins: halved HBM DMA.
-        from gt4py_tpu.core.definitions import F16_DTYPES as _F16SET
-
-        unpacked = [
-            n
-            for n in field_names
-            if metas[n].dtype in _F16SET
-            and n in reads
-            and n not in self.written
-            # ONLY sound for the canonical f16-storage form (every read
-            # wrapped in Cast(f32) by passes.widen_f16_compute): a stencil
-            # built around analyze() directly -- the next bridge, raw IR
-            # users -- keeps per-op 16-bit semantics, where reading an
-            # exact f32 copy would skip per-op roundings
-            and self._f16_reads_all_widened(n)
-        ]
-        if not _f16_unpack_enabled():
-            unpacked = []
-        for name in unpacked:
-            m = tile_metas[name]
-            # the tracer sees the f32 copy (reads need no per-op widening)
-            tile_metas[name] = _FieldMeta(
-                shape=m.shape,
-                origin=m.origin,
-                dtype=np.dtype(np.float32),
-                dimensions=m.dimensions,
-                data_ndim=m.data_ndim,
-            )
-
-        # temporaries live in their own VMEM scratch refs, tile-extended --
-        # except single-assign PARALLEL temps, which stay SSA values
-        # (no scratch, no store/load round trip; Mosaic register-allocates)
-        value_temps = self._value_temp_names()
-        # serial-loop plane-local temps: one K plane of scratch, reused
-        # across the fori sweep (write-first sections guarantee init)
-        plane_temps = self._plane_temp_names()
-        temp_names = sorted(
-            n for n in analysis.stencil.temp_decls if n not in value_temps
-        )
-        temp_tile_shapes = {}
-        for name in temp_names:
-            e = ext.alloc_extent(name)
-            temp_tile_shapes[name] = (
-                1 if name in plane_temps else TK - e.k[0] + e.k[1],
-                TI - e.i[0] + e.i[1],
-                TJ if circular else TJ - e.j[0] + e.j[1],
-            )
-
-        def stage_shape(name):
-            # mode A stages the interior K tile; mode B stages the domain
-            # K window (k_win) or the full column (nonuniform-K stencils)
-            m = metas[name]
-            if m.shape[2] == 1:
-                sk = 1
-            elif k_tiled:
-                sk = TK
-            elif k_win:
-                sk = dK
-            else:
-                sk = m.shape[2]
-            return (
-                sk,
-                1 if m.shape[0] == 1 else TI,
-                1 if m.shape[1] == 1 else TJ,
-            )
-
-        # ---- the pipelined kernel ---- #
         def kernel(*refs):
-            scalar_refs = refs[:n_scalars]
-            pos = n_scalars
-            in_refs = refs[pos : pos + n_fields]
-            pos += n_fields
-            out_refs = refs[pos : pos + n_written]
-            pos += n_written
-            scratch_refs = refs[pos : pos + n_fields]
-            pos += n_fields
-            stage_refs = refs[pos : pos + n_written]
-            pos += n_written
-            temp_scratch = refs[pos : pos + len(temp_names)]
-            pos += len(temp_names)
-            unpack_refs = refs[pos : pos + len(unpacked)]
-            pos += len(unpacked)
-            insem, outsem = refs[pos], refs[pos + 1]
-
-            t = jax.lax.add(
-                jax.lax.mul(
-                    jnp.asarray(pl.program_id(0), jnp.int32), jnp.int32(G1)
-                ),
-                jnp.asarray(pl.program_id(1), jnp.int32),
+            in_refs = refs[: nw + nr]
+            sc_refs = refs[nw + nr : nw + nr + len(arr_scalars)]
+            out_refs = refs[nw + nr + len(arr_scalars) :]
+            ref_map = dict(zip(read_only, in_refs[nw:]))
+            ref_map.update(zip(written, out_refs))
+            sc = dict(scalars)
+            for n, r in zip(arr_scalars, sc_refs):
+                sc[n] = plgpu.load(r)
+            g0 = (
+                ei[0] + pl.program_id(0) * bp.bi,
+                ej[0] + pl.program_id(1) * bp.bj,
             )
-
-            def ds32(start, size):
-                # Mosaic memref slices require 32-bit indices
-                return pl.ds(jnp.asarray(start, dtype=jnp.int32), size)
-
-            def off32(g, const):
-                # g (traced int32) + const (python int), no weak promotion
-                return jax.lax.add(g, jnp.int32(const))
-
-            def coords(tt):
-                a = jax.lax.div(tt, jnp.int32(G1))
-                b = jax.lax.sub(tt, jax.lax.mul(a, jnp.int32(G1)))
-                if mode_a:
-                    return (
-                        jax.lax.mul(a, jnp.int32(TK)),
-                        jax.lax.mul(b, jnp.int32(TI)),
-                        jnp.int32(0),
-                    )  # (gk, gi, gj=0)
-                return (
-                    jnp.int32(0),
-                    jax.lax.mul(a, jnp.int32(TI)),
-                    jax.lax.mul(b, jnp.int32(TJ)),
-                )  # (gk=0, gi, gj)
-
-            n_i_tiles = (dI // TI) if mode_a else None
-
-            def _in_seg_copies(f_idx, tt, slot, for_start):
-                """Yield the DMA segments fetching field ``f_idx``'s tile
-                window, as (pred, copy): ``pred`` is None (unconditional)
-                or a tile-index predicate the start must be guarded by.
-
-                Non-periodic fields are one segment (the whole window).
-                Wrapped fields split the window so the edge segments read
-                from the opposite interior edge -- periodic halos at zero
-                extra traffic (the window covers those lanes either way).
-                Edge-tile wrapped sources use CONSTANT starts under a
-                ``pl.when`` on the tile index: Mosaic must prove sublane
-                divisibility of every slice start, and a select on the
-                start itself defeats that proof.  For waits (``for_start=
-                False``) the unwrapped variant is yielded unconditionally
-                -- same semaphore, same byte count.
-                """
-                name = field_names[f_idx]
-                m = metas[name]
-                hi0, _, hj0, _ = halos[name]
-                hk0, _ = khalos[name]
-                oi, oj, ok = m.origin
-                sk, ni, nj = tile_shapes[name]
-                gk, gi, gj = coords(tt)
-                src = in_refs[f_idx]
-                dst = scratch_refs[f_idx]
-                if m.shape[2] == 1:
-                    ksl = slice(None)
-                elif k_tiled:
-                    ksl = pl.ds(off32(gk, ok - hk0), sk)
-                elif k_win:
-                    ksl = pl.ds(jnp.int32(ok - hk0), sk)  # static window
-                else:
-                    ksl = slice(None)
-                isegs, jsegs = segments[name]
-                w0 = None if m.shape[0] == 1 else off32(gi, oi - hi0)
-                w0_first = oi - hi0
-                w0_last = (dI - TI) + oi - hi0 if mode_a else None
-
-                def emit(seg, istart, iloc, isz, jseg, pred=None):
-                    jkind, jd, js, jsz = jseg
-                    if istart is None:
-                        s_isl = d_isl = slice(None)
-                    else:
-                        s_isl = pl.ds(istart, isz)
-                        d_isl = pl.ds(jnp.int32(iloc), isz)
-                    if jkind == "all":
-                        s_jsl = d_jsl = slice(None)
-                    elif jkind == "win":
-                        s_jsl = pl.ds(off32(gj, oj - hj0), jsz)
-                        d_jsl = slice(None)
-                    else:  # "seg": static physical lane positions
-                        s_jsl = pl.ds(jnp.int32(js), jsz)
-                        d_jsl = pl.ds(jnp.int32(jd), jsz)
-                    return pred, pltpu.make_async_copy(
-                        src.at[ksl, s_isl, s_jsl],
-                        dst.at[slot, slice(None), d_isl, d_jsl],
-                        insem.at[slot, jnp.int32(f_idx), jnp.int32(seg)],
-                    )
-
-                out = []
-                seg = 0
-                for ikind, iloc, isz in isegs:
-                    for jseg in jsegs:
-                        if ikind == "all":
-                            out.append(emit(seg, None, 0, 0, jseg))
-                        elif ikind == "win":
-                            out.append(emit(seg, w0, iloc, isz, jseg))
-                        elif ikind == "mid":
-                            out.append(emit(seg, off32(w0, iloc), iloc, isz, jseg))
-                        elif ikind == "top":
-                            if not for_start:
-                                out.append(emit(seg, w0, iloc, isz, jseg))
-                            elif n_i_tiles == 1:
-                                out.append(emit(
-                                    seg, jnp.int32(w0_first + dI), iloc, isz, jseg
-                                ))
-                            else:
-                                out.append(emit(
-                                    seg, jnp.int32(w0_first + dI), iloc, isz,
-                                    jseg, pred=gi == jnp.int32(0),
-                                ))
-                                out.append(emit(
-                                    seg, w0, iloc, isz, jseg,
-                                    pred=gi != jnp.int32(0),
-                                ))
-                        else:  # "bot"
-                            base = off32(w0, iloc)
-                            if not for_start:
-                                out.append(emit(seg, base, iloc, isz, jseg))
-                            elif n_i_tiles == 1:
-                                out.append(emit(
-                                    seg, jnp.int32(w0_last + iloc - dI),
-                                    iloc, isz, jseg,
-                                ))
-                            else:
-                                last = jnp.int32(dI - TI)
-                                out.append(emit(
-                                    seg, jnp.int32(w0_last + iloc - dI),
-                                    iloc, isz, jseg, pred=gi == last,
-                                ))
-                                out.append(emit(
-                                    seg, base, iloc, isz, jseg, pred=gi != last
-                                ))
-                        seg += 1
-                return out
-
-            def start_in(f_idx, tt, slot):
-                for pred, c in _in_seg_copies(f_idx, tt, slot, True):
-                    if pred is None:
-                        c.start()
-                    else:
-                        pl.when(pred)(lambda c=c: c.start())
-
-            def wait_in(f_idx, tt, slot):
-                for _pred, c in _in_seg_copies(f_idx, tt, slot, False):
-                    c.wait()
-
-            def out_copy(w_idx, tt, slot):
-                name = written[w_idx]
-                m = metas[name]
-                oi, oj, ok = m.origin
-                gk, gi, gj = coords(tt)
-                if aliased[name]:
-                    bk, bi, bj = ok, oi, oj  # write into the full buffer
-                else:
-                    bk, bi, bj = 0, 0, 0  # fresh interior-only output
-                dst = out_refs[w_idx]
-                if m.shape[2] == 1:
-                    ksl = slice(None)
-                elif k_tiled:
-                    ksl = pl.ds(off32(gk, bk), TK)
-                elif k_win and aliased[name]:
-                    # stage holds the dK domain planes; land them at the
-                    # buffer's K origin (window pads untouched)
-                    ksl = pl.ds(jnp.int32(ok), dK)
-                else:
-                    ksl = slice(None)  # stage k == dst k
-                isl = (
-                    slice(None)
-                    if m.shape[0] == 1
-                    else pl.ds(off32(gi, bi), TI)
-                )
-                jsl = (
-                    slice(None)
-                    if m.shape[1] == 1
-                    else pl.ds(off32(gj, bj), TJ)
-                )
-                return pltpu.make_async_copy(
-                    stage_refs[w_idx].at[slot],
-                    dst.at[ksl, isl, jsl],
-                    outsem.at[slot, jnp.int32(w_idx)],
-                )
-
-            slot = jax.lax.rem(t, jnp.int32(slots))
-            nslot = jax.lax.rem(jax.lax.add(t, jnp.int32(1)), jnp.int32(slots))
-
-            if slots > 1:
-                # warm-up: the very first tile loads its own inputs
-                @pl.when(t == jnp.int32(0))
-                def _():
-                    for f in range(n_fields):
-                        start_in(f, t, slot)
-
-                # prefetch tile t+1 into the other slot
-                if T > 1:
-                    @pl.when(t < jnp.int32(T - 1))
-                    def _():
-                        for f in range(n_fields):
-                            start_in(f, jax.lax.add(t, jnp.int32(1)), nslot)
-            else:
-                # single-slot (VMEM-tight) plan: every tile loads its own
-                # inputs up front -- DMA latency exposed, half the scratch
-                for f in range(n_fields):
-                    start_in(f, t, slot)
-
-            # wait for our own inputs
-            for f in range(n_fields):
-                wait_in(f, t, slot)
-
-            # one widen per 16-bit input per tile (exact; f16 storage)
-            for u_idx, uname in enumerate(unpacked):
-                f_idx = field_names.index(uname)
-                unpack_refs[u_idx][...] = (
-                    scratch_refs[f_idx][slot].astype(jnp.float32)
-                )
-
-            # ---- run the stencil IR on the VMEM tiles (mutable refs) ---- #
-            tile_env = {
-                name: (
-                    unpack_refs[unpacked.index(name)]
-                    if name in unpacked
-                    else scratch_refs[idx].at[slot]
-                )
-                for idx, name in enumerate(field_names)
-            }
-            tile_scalars = {}
-            for i, name in enumerate(scalar_names):
-                val = scalar_refs[i][0, 0]
-                decl = analysis.stencil.scalar_decls.get(name)
-                if decl is not None and val.dtype != np.dtype(decl.dtype):
-                    # 16-bit scalars ride SMEM widened to 32 bits (exact);
-                    # restore the declared dtype for promotion semantics
-                    val = val.astype(decl.dtype)
-                tile_scalars[name] = val
-
-            gk, gi, gj = coords(t)
-            tracer = JaxTracer(analysis, dict(tile_metas), (TI, TJ, TK))
-            tracer.no_scan = True  # serial K is an in-VMEM fori_loop here
-            tracer.ref_env = True
-            tracer.circular_j = circular
-            tracer.pltpu_roll = circular and not interpret
-            tracer.mosaic = (not interpret) or config.FORCE_MOSAIC_TRACE
-            tracer.temp_refs = {
-                name: temp_scratch[i] for i, name in enumerate(temp_names)
-            }
-            tracer.value_temps = value_temps
-            tracer.plane_temps = plane_temps
-            tracer.axis_offset = (gi, gj)
-            tracer.global_domain = mask_domain
-            tracer.trace(tile_env, tile_scalars)
-
-            # drain the store of tile t-slots before reusing its stage slot
-            if T > slots:
-                @pl.when(t >= jnp.int32(slots))
-                def _():
-                    for w in range(n_written):
-                        out_copy(w, jax.lax.sub(t, jnp.int32(slots)), slot).wait()
-
-            # stage interiors and stream them out
-            for w_idx, name in enumerate(written):
-                idx = field_names.index(name)
-                hi0, _, hj0, _ = halos[name]
-                hk0, _ = khalos[name]
-                sk, ni, nj = tile_shapes[name]
-                m = metas[name]
-                if mode_a and m.shape[1] != 1:
-                    j_int = (
-                        slice(0, TJ) if circular
-                        else slice(m.origin[1], m.origin[1] + TJ)
-                    )
-                else:
-                    j_int = slice(hj0, hj0 + TJ) if nj > 1 else slice(None)
-                if k_tiled and m.shape[2] != 1:
-                    k_int = slice(hk0, hk0 + TK)
-                elif k_win and m.shape[2] != 1:
-                    k_int = slice(hk0, hk0 + dK)
-                else:
-                    k_int = slice(None)
-                i_int = slice(hi0, hi0 + TI) if ni > 1 else slice(None)
-                # slice the ref directly: loading the whole tile as a value
-                # would materialize it on the scoped-vmem stack
-                stage_refs[w_idx][slot] = scratch_refs[idx][slot, k_int, i_int, j_int]
-                out_copy(w_idx, t, slot).start()
-
-            # final tile drains every outstanding store (with one slot,
-            # t-1 was already drained before staging)
-            @pl.when(t == jnp.int32(T - 1))
-            def _():
-                if T > 1 and slots > 1:
-                    for w in range(n_written):
-                        out_copy(w, jax.lax.sub(t, jnp.int32(1)), nslot).wait()
-                for w in range(n_written):
-                    out_copy(w, t, slot).wait()
-
-        # ---- pallas_call plumbing ---- #
-        def scalar_op(n):
-            # cast to the declared dtype: a bare python float otherwise
-            # becomes f64 under global x64 and the pallas_call custom-call
-            # operand defeats XLA's X64 rewriting on TPU
-            decl = analysis.stencil.scalar_decls.get(n)
-            v = jnp.asarray(scalars[n], dtype=decl.dtype if decl else None)
-            if aligned and v.dtype.itemsize > 4:
-                raise _PallasIneligible()  # no 64-bit types in Mosaic
-            if aligned and v.dtype.itemsize == 2:
-                # SMEM holds 32-bit words: widen (exact), narrow in-kernel
-                from gt4py_tpu.cartesian.analysis import is_float_dtype
-
-                v = v.astype(jnp.float32 if is_float_dtype(v.dtype) else jnp.int32)
-            return v.reshape(1, 1)
-
-        scalar_ops = [scalar_op(n) for n in scalar_names]
-        field_ops = [env[n] for n in field_names]
-
-        def out_struct(name):
-            m = metas[name]
-            if aliased[name]:
-                # phys (K, I, J) full-buffer shape of the donated input
-                return jax.ShapeDtypeStruct(
-                    (m.shape[2], m.shape[0], m.shape[1]), m.dtype
-                )
-            sk = 1 if m.shape[2] == 1 else (dK if (k_tiled or k_win) else m.shape[2])
-            oi_dim = 1 if m.shape[0] == 1 else dI
-            oj_dim = 1 if m.shape[1] == 1 else dJ
-            return jax.ShapeDtypeStruct((sk, oi_dim, oj_dim), m.dtype)
-
-        n_grid = 2
-        in_specs = [
-            pl.BlockSpec(
-                (1, 1), lambda *_: (0, 0), memory_space=pltpu.SMEM
+            tr = _ColumnTracer(
+                analysis, dict(metas), domain, ref_map, bp.bi, bp.bj, g0
             )
-            for _ in scalar_names
-        ] + [pl.BlockSpec(memory_space=pl.ANY) for _ in field_names]
-        out_specs = tuple(pl.BlockSpec(memory_space=pl.ANY) for _ in written)
-        out_shape = tuple(out_struct(n) for n in written)
-        scratch_shapes = (
-            [
-                pltpu.VMEM((slots,) + tile_shapes[n], metas[n].dtype)
-                for n in field_names
-            ]
-            + [
-                pltpu.VMEM((slots,) + stage_shape(n), metas[n].dtype)
-                for n in written
-            ]
-            + [
-                pltpu.VMEM(temp_tile_shapes[n], analysis.stencil.temp_decls[n].dtype)
-                for n in temp_names
-            ]
-            + [
-                # un-slotted f32 copies of the 16-bit read-only inputs
-                pltpu.VMEM(tile_shapes[n], jnp.float32)
-                for n in unpacked
-            ]
-            + [
-                pltpu.SemaphoreType.DMA((slots, n_fields, max_segs)),
-                pltpu.SemaphoreType.DMA((slots, max(n_written, 1))),
-            ]
-        )
+            tr.scalars = sc
+            for sw in stage.sweeps:
+                tr.run_sweep({}, sw, carries.get(id(sw), {}))
 
-        io_aliases = {
-            n_scalars + field_names.index(name): w_idx
-            for w_idx, name in enumerate(written)
-            if aliased[name]
-        }
+        # bool buffers travel as int8 (the kernel's memory type for them)
+        operands = [_as_kernel_dtype(env[n]) for n in written + read_only]
+        operands += [
+            jnp.reshape(jnp.asarray(scalars[n]), (1, 1, 1)) for n in arr_scalars
+        ]
+        any_spec = pl.BlockSpec(memory_space=pl.ANY)
 
-        # trace the kernel with x64 disabled: the session enables jax x64
-        # for f64 oracle parity, but Mosaic has no 64-bit types and the
-        # implicit BlockSpec index maps would otherwise emit i64 indices
-        # ("failed to legalize func.return (i64, i64)")
-        import contextlib
-
-        if interpret:
-            # interpret mode runs f64 oracles on CPU: keep x64 semantics
-            _x64_scope = contextlib.nullcontext()
-        else:
-            # Mosaic has no 64-bit types; the implicit BlockSpec index
-            # maps would otherwise emit i64 under the session's global
-            # x64 ("failed to legalize func.return (i64, i64)")
-            from jax._src.config import enable_x64 as _x64_ctx
-
-            _x64_scope = _x64_ctx(False)
-        with _x64_scope:
-            result = pl.pallas_call(
+        def make_call(interp):
+            return pl.pallas_call(
                 kernel,
+                out_shape=[
+                    jax.ShapeDtypeStruct(o.shape, o.dtype)
+                    for o in operands[:nw]
+                ],
                 grid=grid,
-                in_specs=in_specs,
-                out_specs=out_specs,
-                out_shape=out_shape,
-                scratch_shapes=scratch_shapes,
-                input_output_aliases=io_aliases,
-                compiler_params=pltpu.CompilerParams(has_side_effects=True),
-                interpret=interpret,
-            )(*scalar_ops, *field_ops)
+                in_specs=[any_spec] * len(operands),
+                out_specs=[any_spec] * nw,
+                input_output_aliases={i: i for i in range(nw)},
+                backend="triton",
+                compiler_params=plgpu.CompilerParams(
+                    num_warps=bp.num_warps, num_stages=bp.num_stages
+                ),
+                interpret=interp,
+                name=f"{analysis.stencil.name}_stage{index}",
+            )
 
-        if not isinstance(result, (tuple, list)):
-            result = (result,)
+        _check_lowering(make_call(False), operands)
+        outs = make_call(interpret)(*operands)
+        env = dict(env)
+        for n, o in zip(written, outs):
+            env[n] = o.astype(env[n].dtype) if o.dtype != env[n].dtype else o
+        return env
 
-        # splice non-aliased interiors back into the halo-carrying buffers
-        # (aliased outputs already carry their halos in place)
-        new_env = dict(env)
-        for w, r in zip(written, result):
-            m = metas[w]
-            buf = env[w]
-            if r.shape == buf.shape:
-                new_env[w] = r
-                continue
-            oi, oj, ok = m.origin
-            if m.shape[2] == 1 or not (k_tiled or k_win):
-                kk = slice(None)  # results carry the full K column
-            else:
-                kk = slice(ok, ok + dK)
-            ii = slice(oi, oi + dI) if m.shape[0] != 1 else slice(None)
-            jj = slice(oj, oj + dJ) if m.shape[1] != 1 else slice(None)
-            new_env[w] = buf.at[kk, ii, jj].set(r)
-        return new_env
+
+def _as_kernel_dtype(x):
+    return x.astype(np.int8) if x.dtype == np.bool_ else x
+
+
+def _check_lowering(call, operands) -> None:
+    """Lower the kernel for CUDA before committing to it: a construct the
+    Triton route cannot express becomes a visible fallback here, not a
+    compile error of the caller's whole program later.  Lowering is pure
+    Python (no device), so the CPU runs the same check."""
+    import jax
+
+    avals = [jax.ShapeDtypeStruct(np.shape(o), o.dtype) for o in operands]
+    try:
+        jax.jit(call).trace(*avals).lower(lowering_platforms=("cuda",))
+    except Exception as e:  # noqa: BLE001 -- any lowering refusal
+        msg = str(e).strip().splitlines()
+        raise _PallasIneligible(
+            "Triton lowering: " + (msg[0][:200] if msg else type(e).__name__)
+        ) from e

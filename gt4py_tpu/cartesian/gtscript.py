@@ -16,7 +16,7 @@ import numpy as np
 
 from gt4py_tpu.core.definitions import BFLOAT16 as _BFLOAT16
 
-#: TPU-native 16-bit float, usable as ``Field[bfloat16]`` or a scalar
+#: 16-bit brain float, usable as ``Field[bfloat16]`` or a scalar
 #: annotation (beyond the reference, which has no sub-f32 float story).
 #: Same type object as ``jax.numpy.bfloat16``.
 bfloat16 = _BFLOAT16.type

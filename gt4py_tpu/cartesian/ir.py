@@ -1,6 +1,6 @@
 """The single validated stencil IR ("SIR").
 
-TPU-first collapse of the reference's DefIR -> GTIR -> OIR chain
+A collapse of the reference's DefIR -> GTIR -> OIR chain
 (reference: src/gt4py/cartesian/gtc/gtir.py, src/gt4py/cartesian/gtc/oir.py,
 src/gt4py/cartesian/gtc/common.py) into one IR that carries GTScript
 parallel-model semantics directly:

@@ -1,6 +1,6 @@
 """IR-to-IR optimization passes.
 
-``inline_parallel_temporaries`` is the TPU analog of the reference's
+``inline_parallel_temporaries`` is the analog of the reference's
 OnTheFlyMerging / recompute-instead-of-store stage fusion
 (reference: gtc/passes/oir_optimizations/horizontal_execution_merging.py:135):
 a temporary assigned exactly once, unmasked, in a PARALLEL section and only
@@ -281,9 +281,9 @@ def component_name(name: str, idx: Tuple[int, ...]) -> str:
 def split_data_dims(stencil: ir.Stencil) -> Optional[ir.Stencil]:
     """Rewrite data-dims fields into per-component scalar fields.
 
-    TPU-first data-dims handling: a trailing data dimension would become
-    the Mosaic lane dimension of every tile (tiny, unaligned), so the
-    pallas backend instead splits each (K, I, J, *dd) buffer into dd
+    Data-dims handling for the column kernel: a trailing data dimension
+    would make every kernel access strided and tiny, so the pallas
+    backend instead splits each (K, I, J, *dd) buffer into dd
     separate (K, I, J) component buffers outside the kernel and rewrites
     every statically-indexed access to the matching component field
     (the unroll analog of the reference's UnrollVectorAssignments,
@@ -684,7 +684,7 @@ def split_serial_passes(stencil: ir.Stencil):
 
 
 # --------------------------------------------------------------------------- #
-# Serializing PARALLEL K (mixed-stencil VMEM rescue)
+# Serializing PARALLEL K
 # --------------------------------------------------------------------------- #
 
 
@@ -702,12 +702,10 @@ def serialize_parallel_k(stencil: ir.Stencil) -> Optional[ir.Stencil]:
     (reference: src/gt4py/cartesian/gtc/gtir.py:222-293); the check here
     re-verifies it for raw-IR callers (the next bridge, fuzzers).
 
-    Purpose: a mixed PARALLEL+serial stencil whose mode-B pallas plan
-    cannot fit VMEM (whole-column Mosaic values for the parallel sections)
-    re-plans with every loop serial -- values become per-plane and most
-    temporaries become plane-local scratch (see
-    :func:`plane_local_temps`), e.g. the fused whole-dycore kernel
-    (models.dycore.make_dycore_fused).
+    Purpose: evaluate a mixed PARALLEL+serial stencil plane by plane, so
+    values become per-plane and most temporaries plane-local (see
+    :func:`plane_local_temps`).  No executor calls this pass at present;
+    it is kept as a tested IR rewrite (ROADMAP.md).
 
     Returns None when there is nothing to serialize or a loop is unsafe
     (including runtime interval bounds, which the serial kernel path does
@@ -758,9 +756,8 @@ def plane_local_temps(stencil: ir.Stencil) -> frozenset:
 
     This is the serial-loop complement of the SSA value temps (which
     require PARALLEL single-assign): after :func:`serialize_parallel_k`
-    the bulk of a stencil's temporaries drop from whole-K VMEM arrays to
-    one plane each, which is what lets VMEM-tight fused kernels plan at
-    all.  TPU analog of the reference's LocalTemporariesToScalars
+    the bulk of a stencil's temporaries drop from whole-K arrays to one
+    plane each.  Analog of the reference's LocalTemporariesToScalars
     (src/gt4py/cartesian/gtc/passes/oir_optimizations/temporaries.py:97).
     """
     cand = {n for n, d in stencil.temp_decls.items() if not d.data_dims}
@@ -817,12 +814,10 @@ def widen_f16_compute(stencil: ir.Stencil) -> ir.Stencil:
     This defines the cartesian DSL's sub-f32 float semantics (applied to
     every backend identically in StencilBuilder, so the numpy oracle IS
     this spec).  Motivation is both numeric (f32 accumulation instead of
-    per-op bf16 rounding) and TPU-mechanical: Mosaic has no 16-bit
-    scalar-core arith / cmpf / rolls / transcendentals, so per-op bf16
-    kernels paid widen+round around nearly every op -- halved DMA bytes
-    bought nothing (r3 bench: bf16 dycore 3.03 ms vs f32 2.01).  With
-    storage-format semantics the kernel body is pure f32 (temps resolve
-    to f32), and 16-bit stays where it pays: the HBM traffic.
+    per-op bf16 rounding) and mechanical: per-op 16-bit kernels pay a
+    widen+round around nearly every op.  With storage-format semantics
+    the kernel body is pure f32 (temps resolve to f32), and 16-bit stays
+    where it pays: the device-memory traffic.
 
     User-visible rounding points are preserved: explicit ``astype`` to a
     16-bit dtype still rounds there (then widens again), and every store

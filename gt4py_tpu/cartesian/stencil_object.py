@@ -357,7 +357,7 @@ class StencilObject:
 
         ``fn(**arrays_and_scalars) -> dict`` applies the stencil and returns
         updated arrays for written fields.  Only available on functional
-        (jax/pallas) backends.  This is the TPU-native composition path:
+        (jax/pallas) backends.  This is the composition path:
         chains of stencils trace into ONE fused XLA program with no
         host round-trips between them.
 

@@ -3,7 +3,7 @@
 The single home of the scalar-dtype vocabulary every layer shares
 (reference: src/gt4py/_core/definitions.py:146-453 -- the reference
 machine-enforces that cartesian and next both sit on _core, tach.toml),
-plus the TPU-native re-design of the reference's ``Extent``/``Boundary``
+plus the re-design of the reference's ``Extent``/``Boundary``
 concepts (reference: src/gt4py/cartesian/gtc/definitions.py:18-629).
 An ``Extent`` records, per axis, the (lo, hi) offsets by which a
 computation or field access region extends beyond the compute domain;
@@ -27,14 +27,13 @@ import numpy as np
 # dtype vocabulary (shared by cartesian/, next/, storage/, testing/)
 # --------------------------------------------------------------------------- #
 
-#: TPU-native 16-bit float (numpy extension dtype from ml_dtypes; jax's
+#: 16-bit brain float (numpy extension dtype from ml_dtypes; jax's
 #: jnp.bfloat16 is the same type).  Note its numpy ``kind`` is ``'V'``,
 #: so float-ness must be tested with :func:`is_float_dtype`, not ``kind``.
 BFLOAT16 = np.dtype(ml_dtypes.bfloat16)
 
-#: 16-bit float dtypes needing Mosaic scalar-core f32 workarounds (the
-#: v5e scalar core has no 16-bit negf/cmpf/arith) and (16, 128) VMEM
-#: packing in the Pallas planners.
+#: 16-bit float dtypes (math on them is computed in f32 in the column
+#: kernel: libdevice has no 16-bit math).
 F16_DTYPES = frozenset({BFLOAT16, np.dtype(np.float16)})
 
 

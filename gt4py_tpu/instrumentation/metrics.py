@@ -2,8 +2,7 @@
 
 Reference parity: src/gt4py/next/instrumentation/metrics.py:41-120
 (levels, sample accumulators, per-program collections, JSON dump at exit)
-and gpu_profiler.py trace ranges -- mapped to jax.profiler/named_scope on
-TPU.
+and gpu_profiler.py trace ranges -- mapped to jax.profiler/named_scope.
 """
 
 from __future__ import annotations
@@ -114,7 +113,7 @@ def _dump_at_exit() -> None:  # reference: config.DUMP_METRICS_AT_EXIT
 
 @contextlib.contextmanager
 def profile_range(name: str):
-    """Named trace range: shows up in jax.profiler traces (the TPU analog
+    """Named trace range: shows up in jax.profiler traces (the analog
     of the reference's NVTX ranges, instrumentation/gpu_profiler.py:33-60)."""
     try:
         import jax.profiler

@@ -1,6 +1,6 @@
 // Native grid-record IO: header + raw data, memory-mapped multi-threaded
 // reads.  Built at runtime by gt4py_tpu.io (g++ -O3 -shared) and bound via
-// ctypes -- the TPU-native counterpart of the reference's runtime-compiled
+// ctypes -- the counterpart of the reference's runtime-compiled
 // extension modules (reference: src/gt4py/cartesian/backend/pyext_builder.py
 // compiles generated C++ with setuptools at first use; here the native code
 // is first-party and the build is a single compiler invocation).

@@ -77,7 +77,7 @@ def make_vadv(dtype, backend="jax", *, bet_m=0.5, bet_p=0.5):
         *,
         dtr_stage: dtype,  # stencil-precision scalar: a bare ``float``
         # annotation would make it f64 and C-promote the whole
-        # tridiagonal temp chain to emulated f64 on TPU
+        # tridiagonal temp chain to f64
     ):
         from __externals__ import BET_M, BET_P
 
@@ -334,22 +334,6 @@ def periodic_fill(arr, h: int, ni: int, nj: int, oi: int = None, oj: int = None)
     return arr
 
 
-#: DMA-aligned interior origins: I on the (8) sublane grid, J on the (128)
-#: lane grid, so pallas tile windows of zero-extent fields need no halo
-#: expansion and writes can alias in place
-ORIGIN_I = 8
-ORIGIN_J = 128
-
-
-def aligned_field_shape(nk: int, ni: int, nj: int) -> Tuple[int, int, int]:
-    """Physical (K, I, J) buffer shape with interior at (ORIGIN_I, ORIGIN_J)
-    and the J extent a multiple of 128 (Mosaic lane-dim slice sizes must be
-    tiling-aligned, including full-row windows)."""
-    si = ORIGIN_I + ni + ORIGIN_I + 8
-    sj = ORIGIN_J + (-(-(nj + ORIGIN_J) // 128) * 128)
-    return (nk, si, sj)
-
-
 class MiniDycore:
     """A mini timestep: periodic-halo hdiff + vertical advection + update.
 
@@ -370,17 +354,13 @@ class MiniDycore:
         *,
         dtype=np.float32,
         backend="jax",
-        aligned: bool = True,
     ):
         self.ni, self.nj, self.nk = ni, nj, nk
         self.dtype = np.dtype(dtype)
         h = self.HALO
-        #: aligned=True places interiors at the DMA-aligned (8, 128) origin
-        #: (single-chip pallas); aligned=False packs tight at origin (h, h)
-        #: (the shard_map halo-exchange layout)
-        self.aligned = aligned
-        self.oi = ORIGIN_I if aligned else h
-        self.oj = ORIGIN_J if aligned else h
+        # interiors packed tight at origin (h, h): no padding for alignment
+        # (the column kernel masks ragged blocks; coalescing follows J)
+        self.oi = self.oj = h
         self.hdiff = make_hdiff(dtype, backend)
         self.vadv = make_vadv(dtype, backend)
         self.vadv_upd = make_vadv_update(dtype, backend)
@@ -393,20 +373,18 @@ class MiniDycore:
         self.hdiff_fn = self.hdiff.functional(**kw)
         self.vadv_fn = self.vadv.functional(**kw)
         self.vadv_upd_fn = self.vadv_upd.functional(**kw)
-        # periodic-boundary variants: halo wrap folded into the kernels'
-        # tile DMA -- the step then needs no explicit fill passes
+        # periodic-boundary variants: the halo wrap happens inside the
+        # stencil call -- the step then needs no explicit fill passes
         self.hdiff_fn_p = self.hdiff.functional(**kw, periodic=("I", "J"))
         self.vadv_upd_fn_p = self.vadv_upd.functional(**kw, periodic=("I", "J"))
-        # single-kernel form (SOL-table lever): diffusion feeds the
-        # tridiagonal solve through an in-VMEM temp -- 28 bytes/pt vs 40
+        # single-stencil form: diffusion feeds the tridiagonal solve
+        # through a temporary -- 28 bytes/pt vs 40
         self.fused = make_dycore_fused(dtype, backend)
         self.fused_fn = self.fused.functional(**kw)
         self.fused_fn_p = self.fused.functional(**kw, periodic=("I", "J"))
 
     def field_shape(self) -> Tuple[int, int, int]:
-        """Physical (K, I, J) buffer shape (see aligned_field_shape)."""
-        if self.aligned:
-            return aligned_field_shape(self.nk, self.ni, self.nj)
+        """Physical (K, I, J) buffer shape."""
         h = self.HALO
         return (self.nk, self.ni + 2 * h, self.nj + 2 * h)
 

@@ -27,12 +27,11 @@ class FullDycore:
         *,
         dtype=np.float32,
         backend="jax",
-        aligned: bool = True,
     ):
         self.ni, self.nj, self.nk = ni, nj, nk
         self.dtype = np.dtype(dtype)
-        self.dyn = MiniDycore(ni, nj, nk, dtype=dtype, backend=backend, aligned=aligned)
-        self.fv = FvAdvection(ni, nj, nk, dtype=dtype, backend=backend, aligned=aligned)
+        self.dyn = MiniDycore(ni, nj, nk, dtype=dtype, backend=backend)
+        self.fv = FvAdvection(ni, nj, nk, dtype=dtype, backend=backend)
         self.oi, self.oj = self.dyn.oi, self.dyn.oj
         assert self.dyn.field_shape() == self.fv.field_shape()
         # semi-Lagrangian transport as a STENCIL (windowed W=1, periodic

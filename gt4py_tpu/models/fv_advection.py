@@ -21,13 +21,7 @@ import numpy as np
 from gt4py_tpu.cartesian import gtscript
 from gt4py_tpu.cartesian.gtscript import PARALLEL, computation, interval
 
-from .dycore import (
-    ORIGIN_I,
-    ORIGIN_J,
-    _literal_precision,
-    aligned_field_shape,
-    periodic_fill,
-)
+from .dycore import _literal_precision, periodic_fill
 
 
 def make_xflux(dtype, backend="jax"):
@@ -249,10 +243,9 @@ def make_fv_step(dtype, backend="jax"):
     fields qx/qy and every PPM flux are in-stencil temporaries, recomputed
     in tile halos instead of round-tripping HBM.  Minimum possible traffic:
     read q, cx, cy; write qout (4 buffers vs 11 for the 2-kernel split).
-    This is the TPU form of the reference's on-the-fly stage merging
+    This is the form of the reference's on-the-fly stage merging
     (gtc/passes/oir_optimizations/horizontal_execution_merging.py:135):
-    the extent analysis gives the temporaries their (+-3) halo extents and
-    the pallas backend keeps them entirely in VMEM."""
+    the extent analysis gives the temporaries their (+-3) halo extents."""
     Field = gtscript.Field[dtype]
 
     @gtscript.stencil(
@@ -469,15 +462,12 @@ class FvAdvection:
         *,
         dtype=np.float32,
         backend="jax",
-        aligned: bool = True,
     ):
         self.ni, self.nj, self.nk = ni, nj, nk
         self.dtype = np.dtype(dtype)
         self.backend = backend
         h = self.HALO
-        self.aligned = aligned
-        self.oi = ORIGIN_I if aligned else h
-        self.oj = ORIGIN_J if aligned else h
+        self.oi = self.oj = h
         dom = (ni, nj, nk)
         origin = (self.oi, self.oj, 0)
         physical = backend in ("jax", "pallas")
@@ -506,7 +496,7 @@ class FvAdvection:
                 # (halo wrap folded into the tile DMA on pallas)
                 "xyadv_half_p": make_xy_advect(dtype, backend, 0.5).functional(**kw_p),
                 "final_p": make_fv_final(dtype, backend).functional(**kw_p),
-                # single-kernel step: qx/qy/fluxes as in-VMEM temporaries
+                # single-stencil step: qx/qy/fluxes as temporaries
                 "step_p": make_fv_step(dtype, backend).functional(**kw_p),
                 # non-periodic fused step: halos pre-filled externally
                 # (the shard_map halo-exchange path; HALO=3 covers the
@@ -515,8 +505,6 @@ class FvAdvection:
             }
 
     def field_shape(self) -> Tuple[int, int, int]:
-        if self.aligned:
-            return aligned_field_shape(self.nk, self.ni, self.nj)
         h = self.HALO
         return (self.nk, self.ni + 2 * h, self.nj + 2 * h)
 

@@ -1,9 +1,9 @@
-"""Semi-Lagrangian transport: departure-point interpolation on TPU.
+"""Semi-Lagrangian transport: departure-point interpolation.
 
 Departure points require data-dependent *horizontal* gathers, which the
 Cartesian stencil DSL deliberately does not express (only K offsets may be
 data-dependent); this model is therefore written directly against jax --
-the TPU-native formulation is a per-level bilinear gather, vectorized over
+the formulation is a per-level bilinear gather, vectorized over
 K, with periodic index wrapping.  (Workload named by BASELINE.json; absent
 from the reference repository.)
 """
@@ -25,9 +25,8 @@ def semi_lagrangian_step(
     ``max_shift``: bound on the departure displacement in cells.  When
     given, the interpolation evaluates as a windowed sum of periodic
     rolls and pointwise selects -- pure VPU work.  When None, a general
-    3D gather is used: exact for any displacement, but XLA lowers it to
-    a serial gather on TPU (~1.2 s for 512^2x80 vs ~5 ms windowed --
-    measured; production configurations bound CFL anyway).
+    3D gather is used: exact for any displacement (production
+    configurations bound CFL anyway).
     """
     import jax.numpy as jnp
 

@@ -10,9 +10,8 @@ backend as its oracle.
 
 Staggering (C-grid): ``h`` at cell centers, ``u`` at x-faces (index i is
 the face between cells i-1 and i), ``v`` at y-faces.  The whole step is
-ONE stencil — the provisional winds are in-stencil temporaries, so the
-pallas backend keeps them in VMEM and the continuity update reads them
-at offsets (whole-domain parallel-assignment semantics).
+ONE stencil — the provisional winds are in-stencil temporaries, and the
+continuity update reads them at offsets (whole-domain parallel-assignment semantics).
 
 Mass is conserved exactly (flux form + periodic boundaries): the height
 update telescopes under the periodic sum.
@@ -25,7 +24,7 @@ import numpy as np
 from gt4py_tpu.cartesian import gtscript
 from gt4py_tpu.cartesian.gtscript import PARALLEL, computation, interval
 
-from .dycore import ORIGIN_I, ORIGIN_J, _literal_precision
+from .dycore import _literal_precision
 
 
 def make_sw_step(dtype, backend="jax", *, g=9.81, H=100.0, f=1e-4,
@@ -93,7 +92,6 @@ class ShallowWater:
         *,
         dtype=np.float32,
         backend="jax",
-        aligned: bool = True,
         g=9.81,
         H=100.0,
         f=1e-4,
@@ -106,9 +104,7 @@ class ShallowWater:
         self.backend = backend
         self.params = dict(g=g, H=H, f=f, dx=dx, dy=dy, dt=dt)
         h = self.HALO
-        self.aligned = aligned
-        self.oi = ORIGIN_I if aligned else h
-        self.oj = ORIGIN_J if aligned else h
+        self.oi = self.oj = h
         self.stencil = make_sw_step(dtype, backend, **self.params)
         physical = backend in ("jax", "pallas")
         if physical:
@@ -121,10 +117,6 @@ class ShallowWater:
             self.fn_p = self.stencil.functional(**kw, periodic=("I", "J"))
 
     def field_shape(self) -> Tuple[int, int, int]:
-        if self.aligned:
-            from .dycore import aligned_field_shape
-
-            return aligned_field_shape(self.nk, self.ni, self.nj)
         h = self.HALO
         return (self.nk, self.ni + 2 * h, self.nj + 2 * h)
 

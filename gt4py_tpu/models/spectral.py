@@ -1,6 +1,6 @@
 """Spectral transforms: FFT-based filters and elliptic solves.
 
-TPU-native: per-level 2D real FFTs over the horizontal plane (XLA's FFT),
+Per-level 2D real FFTs over the horizontal plane (XLA's FFT),
 vectorized over the K-leading axis.  (Workload named by BASELINE.json;
 absent from the reference repository.)
 """

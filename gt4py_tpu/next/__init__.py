@@ -1,6 +1,6 @@
 """gt4py_tpu.next: declarative field-view DSL over jax arrays.
 
-A TPU-native re-design of the reference's ``gt4py.next`` frontend
+A JAX re-design of the reference's ``gt4py.next`` frontend
 (reference: src/gt4py/next/common.py, ffront/decorator.py,
 embedded/nd_array_field.py): dimensions are first-class, fields carry
 their domain, binary operations intersect domains automatically, offsets

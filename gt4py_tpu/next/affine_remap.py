@@ -1,9 +1,8 @@
 """Affine-gather lowering for quasi-structured connectivity tables.
 
-Scalar-addressed gathers (``jnp.take``) are the dominant cost of the
-unstructured path on TPU: XLA lowers them to per-element loads that run
-two to three orders of magnitude below HBM speed-of-light (measured in
-docs/performance.md "Unstructured gather path").  But meshes produced by
+Scalar-addressed gathers (``jnp.take``) were the dominant cost of the
+unstructured path on the machine this module was written for (whether
+they still are on a GPU is an open measurement, ROADMAP.md).  Meshes produced by
 structured-grid tooling -- and the large interior regions of most
 production meshes -- have neighbor tables that are *piecewise 2D-affine*:
 within a block of consecutive elements,
@@ -13,8 +12,7 @@ within a block of consecutive elements,
 (C = elements per mesh row, A = codomain row stride).  For such blocks
 the gather IS a dense strided window: slice ``R*A`` contiguous rows,
 reshape to ``(R, A)``, keep the first ``C`` lanes per row.  That turns a
-million-element scatter/gather into a handful of contiguous DMAs the TPU
-can stream at bandwidth, with a small static scatter patching the
+million-element scatter/gather into a handful of contiguous copies, with a small static scatter patching the
 boundary entries the affine model misses (skip values, mesh edges).
 
 This module detects that structure numerically -- no mesh metadata is
@@ -44,9 +42,7 @@ in tests/next/test_affine_remap.py.
 
 Reference behavior being accelerated: gather through NeighborTables,
 src/gt4py/next/embedded/nd_array_field.py (``_make_reduction`` /
-premap); the reference runs these as numpy/cupy ``take`` -- on TPU the
-equivalent "speed-of-light" implementation is the strided window, not a
-faster gather.
+premap); the reference runs these as numpy/cupy ``take``.
 """
 
 from __future__ import annotations

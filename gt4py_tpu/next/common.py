@@ -6,7 +6,7 @@ Domain :433, Field protocol :749, Connectivity :964-1122, promote_dims
 :1349) and the jax namespace registration in
 embedded/nd_array_field.py:1055-1091.
 
-TPU-first redesign note: there is exactly one ``Field`` implementation,
+Redesign note: there is exactly one ``Field`` implementation,
 generic over the array namespace.  jax-backed fields are the product path
 (pytree-registered, jit-traceable); numpy-backed fields are the embedded
 oracle (reference runners/roundtrip.py analog) -- both run the same
@@ -851,8 +851,8 @@ class Field:
         gathered = None
         if xp is not np and isinstance(conn.table, np.ndarray):
             # quasi-structured tables: gather as dense strided windows
-            # (affine_remap.py) -- bit-identical to the take path, far
-            # cheaper than an XLA gather on TPU; None when ineligible.
+            # (affine_remap.py) -- bit-identical to the take path;
+            # None when ineligible.
             # 1D tables (neighbor columns, as_offset with concrete
             # indices) plan as a single column; the local axis the plan
             # machinery adds is dropped again below.

@@ -5,7 +5,7 @@ Reference behavior being reproduced: next/otf/compiled_program.py:161-680
 static-argument values, asynchronously on a thread pool, dispatch calls to
 the matching variant, ``wait_for_compilation``).
 
-TPU-native design: each variant is a ``jax.jit(fn, static_argnames=...)``
+Design: each variant is a ``jax.jit(fn, static_argnames=...)``
 executable produced with the AOT API (``.lower(...).compile()``), so a
 dispatch is a cache lookup plus a device call -- no retracing.  Fields
 (pytrees) are supported transparently; variants are keyed by the static

@@ -4,7 +4,7 @@ The reference is single-process (SURVEY.md §2.7: no distributed code
 anywhere under src/); this layer is net-new, mirroring what
 ``gt4py_tpu.parallel`` provides for cartesian stencils.
 
-TPU-first design: a ``next.Field``'s data is a jax array, so distribution
+Design: a ``next.Field``'s data is a jax array, so distribution
 is *sharding*, not new execution machinery.  ``distribute`` places the
 data with a ``NamedSharding`` mapping field dimensions onto device-mesh
 axes; field operators staged under ``jax.jit`` (the ``jax_jit`` backend

@@ -5,7 +5,7 @@ Reference analog: src/gt4py/next/iterator/transforms/infer_domain.py
 propagating offsets backwards) and the cartesian extent analysis
 (oir_optimizations/utils.py:250-330).
 
-TPU-first compaction: FVIR is interpreted, so no temporary-materialization
+Compaction: FVIR is interpreted, so no temporary-materialization
 pass is needed -- what remains of domain inference is the *access extent*
 of every input: for each parameter, per dimension, the (lo, hi) window
 the operator reads relative to an output point.  ``required_domains``

@@ -790,10 +790,10 @@ class Program:
         env.update(typed.closure)
         if self._backend is not None and getattr(self._backend, "compiled", ""):
             # whole-program fusion: splice the statements' kernels into
-            # ONE fused stencil (intermediates stay in VMEM) when every
-            # statement is an eligible cartesian operator call -- the
-            # reference's global-tmps + as_fieldop fusion re-done
-            # TPU-first (see pallas_bridge.lower_program)
+            # ONE fused stencil (intermediates become temporaries) when
+            # every statement is an eligible cartesian operator call --
+            # the reference's global-tmps + as_fieldop fusion re-done
+            # (see pallas_bridge.lower_program)
             self._check_domains(typed, env)
             if self._run_fused(typed, merged):
                 return

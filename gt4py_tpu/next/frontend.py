@@ -10,7 +10,7 @@ Reference analogs:
   - src/gt4py/next/ffront/func_to_past.py / past_passes: the same for
     ``@program`` definitions (operator calls with ``out=``/``domain=``).
 
-TPU-first compaction: one parser + one typed IR (fvir.py) serve field
+Compaction: one parser + one typed IR (fvir.py) serve field
 operators, scan operators and programs; the typed IR is *interpreted*
 over jax Fields (interpreter.py) -- tracing under ``jax.jit`` replaces
 the FOAST->PAST->ITIR->codegen pipeline.

@@ -3,7 +3,7 @@
 Reference analog: src/gt4py/next/ffront/field_operator_ast.py (FOAST).
 Same role -- a small, validated, typed AST for the restricted Python
 subset accepted inside ``@field_operator`` / ``@scan_operator`` /
-``@program`` -- with a TPU-first simplification: FVIR is *interpreted*
+``@program`` -- with a simplification: FVIR is *interpreted*
 over jax-backed Fields (tracing under jit = compilation) instead of being
 lowered through ITIR to generated code, so one IR covers FOAST+PAST+ITIR.
 

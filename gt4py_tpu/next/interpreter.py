@@ -3,7 +3,7 @@
 Reference analog: the embedded execution path
 (src/gt4py/next/embedded/operators.py + the roundtrip runner
 runners/roundtrip.py:45-237 which interprets the lowered program).
-TPU-first: one evaluator serves (a) jax-backed Fields -- eager on device,
+One evaluator serves (a) jax-backed Fields -- eager on device,
 or traced under ``jax.jit`` into a fused XLA program -- and (b)
 numpy-backed Fields, the independent oracle; semantics cannot fork
 because both run *this* code.

@@ -1,4 +1,4 @@
-"""Compile next field operators to fused cartesian Pallas kernels.
+"""Compile next field operators to fused cartesian stencils.
 
 The reference dispatches field operators to *compiled* program processors
 (gtfn C++ codegen, dace SDFGs -- src/gt4py/next/program_processors/); the
@@ -6,9 +6,8 @@ jax_jit backend here plays that role by staging the embedded interpreter
 under XLA.  For operators on cartesian dimensions that is still op-by-op
 HBM traffic between whole-field primitives; this module closes the gap by
 LOWERING the typed field-view IR (fvir) to the cartesian stencil IR and
-executing it through the Pallas backend -- the same fused VMEM tile
-kernels the cartesian DSL gets (hdiff written in the next DSL: 5.11 ms
-jit-staged vs 1.07 ms through this bridge at 512^2 x 80 f32).
+executing it through the Pallas backend -- the same column kernels (or
+class-rule XLA path) the cartesian DSL gets.
 
 Eligible subset: field operators (not scans/programs) whose parameters
 are Fields over at most two horizontal and one vertical cartesian
@@ -1407,8 +1406,8 @@ def run_plan(plan: BridgePlan, args: Tuple[Any, ...], restrict=None) -> Field:
 # A column scan IS the cartesian serial-K pattern: the carry at level k is
 # the out field at k-1 (FORWARD) / k+1 (BACKWARD), seeded by the init
 # literal in the first written level.  Lowering a next scan_operator to a
-# FORWARD/BACKWARD vertical loop hands it to the Pallas mode-B kernels
-# (whole K column in VMEM, one HBM round trip per column) -- the analog of
+# FORWARD/BACKWARD vertical loop hands it to the column kernel (the
+# carry stays in registers over the K loop) -- the analog of
 # the reference's scan handling in the compiled program processors
 # (gtfn: scan_executor; embedded spec: embedded/operators.py:40-90).
 
@@ -1753,10 +1752,9 @@ def run_scan_plan(plan: ScanBridgePlan, args: Tuple[Any, ...]):
 # fuses across statements with global-temporaries extraction +
 # as_fieldop fusion (reference:
 # src/gt4py/next/iterator/transforms/global_tmps.py:312,
-# fuse_as_fieldop.py:245).  The TPU-first equivalent here: splice every
+# fuse_as_fieldop.py:245).  The equivalent here: splice every
 # statement's already-lowered cartesian kernel body into ONE stencil --
-# intermediates become in-VMEM temporaries the existing planner already
-# handles -- over the INTERSECTION of the statements' write domains, and
+# intermediates become temporaries -- over the INTERSECTION of the statements' write domains, and
 # complete each intermediate's halo region (its write domain minus the
 # intersection) with thin restricted per-operator runs on the XLA
 # executor (O(n*halo) work vs the kernel's O(n^2)).
@@ -2067,7 +2065,7 @@ class _FusedInstance:
     scalar_feeds: List[Tuple[str, Tuple[str, Any]]]
     stmt_writes: List[List[_MemberWrite]]
     #: per statement: the op plan re-targeted at the XLA executor for
-    #: thin strip runs (no Mosaic tiling constraints, no fallback noise)
+    #: thin strip runs (no fallback noise)
     strip_plans: List[Optional[BridgePlan]]
 
 

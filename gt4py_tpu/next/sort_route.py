@@ -1,13 +1,9 @@
 """Sort-routing gathers for truly-IRREGULAR connectivity tables.
 
 The affine window remap (affine_remap.py) covers quasi-structured
-tables; everything else used to run as scalar-addressed XLA gathers at
-~7 ns/element on TPU (chip-measured r5: ``take`` of 1M f32 from a 262k
-pool = 7.5 ms).  TPU has no fast random-access gather -- but it sorts
-at bandwidth-scale speed (``lax.sort_key_val`` of 1M pairs = 1.5 ms on
-v5e), and a sort with STATIC keys is a static permutation.  This module
-compiles an arbitrary static gather into a small sequence of static
-permutations:
+tables; this module compiles an arbitrary static gather into a small
+sequence of static permutations (a sort with STATIC keys is a static
+permutation):
 
     out[i] = data[idx[i]]        (idx static, N outputs, M sources)
 
@@ -27,16 +23,13 @@ to the take path by construction.  The numpy oracle keeps plain take
 (CLAUDE.md: the oracle defines numerics); this path engages for
 jax-backed Fields only, mirroring affine_remap's dispatch.
 
-Runtime executors for a static permutation, fastest first:
-- :mod:`benes` butterfly Pallas kernel (whole array resident in VMEM;
-  planned in native C++ offline) -- used on TPU when the size fits,
-- ``lax.sort_key_val`` with the static key array (any platform/size).
+A static permutation runs as ``lax.sort_key_val`` with the static key
+array.  The module was built for a machine without fast random-access
+gathers; whether plain ``take`` is faster on a GPU is an open
+measurement (ROADMAP.md), so the default is unchanged.
 
-Reference behavior being accelerated: gather through NeighborTables of
-src/gt4py/next/embedded/nd_array_field.py:615-1023; the reference's
-dace runner compiles arbitrary unstructured connectivity to indirect
-addressing (runners/dace/gtir_to_sdfg.py), which GPUs execute natively
--- the TPU-native equivalent is this routing decomposition.
+Reference behavior: gather through NeighborTables of
+src/gt4py/next/embedded/nd_array_field.py:615-1023.
 """
 
 from __future__ import annotations
@@ -208,11 +201,6 @@ def _permute(vals, keys_np: np.ndarray):
     import jax.numpy as jnp
     from jax import lax
 
-    from . import benes
-
-    out = benes.permute(vals, keys_np)
-    if out is not None:
-        return out
     return lax.sort_key_val(jnp.asarray(keys_np), vals)[1]
 
 

@@ -6,7 +6,7 @@ FunctionType/OffsetType/DimensionType/DomainType), type_translation.py
 (python values & annotations -> TypeSpec) and type_info.py (promote :561,
 is_arithmetic/is_logical, extract_dims/extract_dtype).
 
-TPU-first compaction: plain frozen dataclasses instead of the eve
+Compaction: plain frozen dataclasses instead of the eve
 datamodel framework; the semantic rules (no implicit scalar promotion,
 canonical dimension ordering) are identical.
 """
@@ -262,7 +262,7 @@ uint32 = np.uint32
 uint64 = np.uint64
 float32 = np.float32
 float64 = np.float64
-bfloat16 = _BFLOAT16.type  # TPU-native (beyond the reference)
+bfloat16 = _BFLOAT16.type  # beyond the reference
 IndexType = np.int32  # (reference: fbuiltins.IndexType :116)
 
 _SCALAR_ALIASES: Dict[Any, np.dtype] = {

@@ -76,9 +76,7 @@ def halo_exchange(
     strips to a narrower WIRE format before the ppermute and back to the
     block dtype on arrival: the interior compute stays full precision,
     only the halo values round once -- halving (f32) or quartering (f64)
-    the ICI/DCN bytes per exchange.  This is where 16-bit formats
-    actually pay on v5e (kernel time does not: the fused kernels are
-    compute-bound, docs/performance.md round-4 section 6).  Single-shard
+    the interconnect bytes per exchange.  Single-shard
     wrap/boundary fills apply the same rounding so an N=1 mesh axis is
     bit-identical to an N>1 one.
     """

@@ -22,9 +22,9 @@ def _factor2(n: int) -> Tuple[int, int]:
 class CartesianMesh:
     """A 2D mesh of devices mapping ("x", "y") onto the (I, J) axes.
 
-    The mesh rides ICI within a host and DCN across hosts; jax's
-    ``create_device_mesh`` picks a device order that keeps neighboring
-    shards on neighboring chips.
+    The cards of one host are joined all to all (NVLink), so the device
+    order does not matter for the halo exchange; ``create_device_mesh``
+    picks one (a plain reshape where it declines).
     """
 
     AXES = ("x", "y")

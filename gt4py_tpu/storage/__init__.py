@@ -3,7 +3,7 @@
 Reference API: src/gt4py/storage/cartesian/interface.py:40-264
 (``empty/zeros/ones/full/from_array`` with ``backend`` and ``aligned_index``).
 
-TPU-native redesign: instead of the reference's aligned-malloc + layout-map
+Redesign: instead of the reference's aligned-malloc + layout-map
 machinery, allocation returns either a mutable numpy ``FieldStorage``
 (cpu backends, in-place semantics) or a jax-array-backed ``FieldStorage``
 (jax/pallas backends, functionally updated by the executor and rebound on

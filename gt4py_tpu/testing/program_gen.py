@@ -331,23 +331,20 @@ def run_differential_case(
     canonical_f16=False,
     allow_while: bool = True,
     max_flip_fraction: float = 0.0,
+    serialize: bool = False,
 ) -> None:
     """Generate one program, run the numpy oracle vs each backend in
     ``backends`` ("jax", "pallas"), assert allclose.  On CPU the pallas
-    leg runs the interpret-mode kernel path (random programs with
-    extended API write extents transparently fall back to the XLA
-    executor, which still exercises the eligibility logic).
+    leg runs the interpret-mode kernel path.
 
-    ``aligned=True`` picks Mosaic-eligible geometry (origins on the
-    (8, 128) DMA grid, physical J a multiple of 128) so the same cases
-    compile and run on a real TPU chip: use with ``dtype=np.float32``
-    (Mosaic has no 64-bit types) and f32 tolerances."""
+    ``aligned=True`` picks a wide geometry (J = 128 with 128-point J halos,
+    I a multiple of 8 or 16), so the column kernel runs several blocks
+    per row.  ``serialize=True`` runs the backends on the program's
+    ``passes.serialize_parallel_k`` form (where it applies)."""
     from gt4py_tpu.cartesian import analysis as analysis_mod
     from gt4py_tpu.cartesian.backend import from_name
 
     rng = random.Random(seed)
-    # 16-bit dtypes pack VMEM at (16, 128): aligned geometry follows the
-    # dtype's sublane multiple so the Mosaic kernel path stays eligible
     sub = 16 if np.dtype(dtype).itemsize == 2 else 8
     if domain is None:
         if aligned:
@@ -367,6 +364,13 @@ def run_differential_case(
 
         stencil = passes_mod.widen_f16_compute(stencil)
     an = analysis_mod.analyze(stencil)
+    an_run = an
+    if serialize:
+        from gt4py_tpu.cartesian import passes as passes_mod
+
+        ser = passes_mod.serialize_parallel_k(stencil)
+        if ser is not None:
+            an_run = analysis_mod.analyze(ser)
 
     nprng = np.random.default_rng(seed)
     if aligned:
@@ -405,7 +409,7 @@ def run_differential_case(
 
     for backend in backends:
         jx = {k: v.copy() for k, v in arrays.items()}
-        result = from_name(backend)(an, {}).run(
+        result = from_name(backend)(an_run, {}).run(
             jx, scalars, domain, origins, periodic=periodic
         )
         for name, new in result.items():
@@ -418,8 +422,8 @@ def run_differential_case(
         flips_ok = max_flip_fraction > 0 and _has_data_branches(stencil)
         for name in names:
             if flips_ok:
-                # REAL-CHIP comparison contract: XLA/Mosaic compile with
-                # excess-precision FMA fusion, so a data-dependent branch
+                # ON-CARD comparison contract: the GPU compilers contract
+                # multiply-adds into FMAs, so a data-dependent branch
                 # condition within one ulp of its threshold can FLIP vs
                 # the oracle -- an isolated point then takes a different
                 # branch (or while-iteration count) and no tolerance

@@ -2,9 +2,9 @@
 recovery.
 
 The reference has no failure-detection story (SURVEY.md §5: "None").  On
-shared TPU pools one is needed in practice: device dispatch can fail
-transiently (UNAVAILABLE / FAILED_PRECONDITION from a preempted or
-relocated chip) and long runs must survive restarts.  This module keeps
+shared accelerator pools one is needed in practice: device dispatch can
+fail transiently (UNAVAILABLE / FAILED_PRECONDITION from a preempted or
+relocated device) and long runs must survive restarts.  This module keeps
 the policy minimal and explicit:
 
 - :func:`run_resilient` drives ``state = step_fn(state)`` for N steps,

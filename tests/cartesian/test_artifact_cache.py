@@ -17,7 +17,7 @@ import numpy as np
 from gt4py_tpu.models.fv_advection import FvAdvection
 
 NI = NJ = 12; NK = 3; H = FvAdvection.HALO
-m = FvAdvection(NI, NJ, NK, dtype=np.float64, backend="numpy", aligned=False)
+m = FvAdvection(NI, NJ, NK, dtype=np.float64, backend="numpy")
 st = m.init_state(seed=1)
 L = {{k: np.transpose(v, (1, 2, 0)).copy() for k, v in st.items()}}
 q = m.run_numpy_oracle(L["q"], L["cx"], L["cy"])

@@ -17,6 +17,9 @@ from gt4py_tpu.cartesian.gtscript import (
     interval,
 )
 
+# kernel numerics for every stencil class, not only the default rule's
+pytestmark = pytest.mark.usefixtures("all_kernel_classes")
+
 Field3D = gtscript.Field[np.float64]
 
 

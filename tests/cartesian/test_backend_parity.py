@@ -9,6 +9,9 @@ from gt4py_tpu.cartesian import gtscript
 
 from . import stencil_defs
 
+# kernel numerics for every stencil class, not only the default rule's
+pytestmark = pytest.mark.usefixtures("all_kernel_classes")
+
 
 PARITY_BACKENDS = ["jax", "pallas"]
 
@@ -104,7 +107,7 @@ def test_dycore_fused_single_kernel_matches_two_kernel():
 
     from gt4py_tpu.models.dycore import MiniDycore
 
-    m = MiniDycore(16, 128, 6, dtype=np.float32, backend="jax", aligned=True)
+    m = MiniDycore(16, 128, 6, dtype=np.float32, backend="jax")
     st = {k: jnp.asarray(v) for k, v in m.init_state(seed=3).items()}
     out2 = m.step_fn()(dict(st))
     out1 = m.step_fn(fused=True)(dict(st))

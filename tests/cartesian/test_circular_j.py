@@ -1,11 +1,12 @@
-"""Circular-J (lane-roll) mode of the pallas mode-A periodic kernels.
+"""Periodic I/J through the pallas column kernel.
 
-With ``periodic`` including "J", eligible all-PARALLEL stencils window
-exactly the J domain (the full periodic circle) and evaluate J offsets
-as lane rolls instead of halo-extended slices (pallas_backend.py).
-These tests pin (a) that the mode actually engages (via LAST_PLAN --
-matching results alone cannot distinguish kernel forms), (b) bitwise
-oracle parity, and (c) every documented ineligibility gate.
+Periodic axes fill each read field's halo from the opposite interior edge
+before the kernel runs (the same semantics as the other executors), so
+the kernel sees ordinary halo-extended buffers.  These tests pin (a) that
+the kernel actually ran (via LAST_PLAN -- matching results alone cannot
+distinguish the paths), (b) bitwise oracle parity for the constructs that
+interact with the wrap (regions, axis positions, serial K), and (c) the
+multi-block grid with small forced blocks.
 """
 
 import numpy as np
@@ -27,35 +28,45 @@ from gt4py_tpu.cartesian.gtscript import (
 
 F = gtscript.Field[np.float64]
 
+pytestmark = pytest.mark.usefixtures("all_kernel_classes")
+
 NI, NJ, NK = 24, 16, 5
 H = 2
 SHAPE = (NI + 2 * H, NJ + 2 * H, NK)
 INTERIOR = (slice(H, H + NI), slice(H, H + NJ), slice(None))
 
 
-def _fill(a):
-    a = a.copy()
-    a[:H] = a[NI : NI + H]
-    a[NI + H :] = a[H : 2 * H]
-    a[:, :H] = a[:, NJ : NJ + H]
-    a[:, NJ + H :] = a[:, H : 2 * H]
-    return a
-
-
-def _oracle(defn, a0):
+def _oracle(defn, a0, periodic=("I", "J")):
     st = gtscript.stencil(backend="numpy")(defn)
-    af = storage.from_array(_fill(a0), backend="numpy", aligned_index=(H, H, 0))
+    af = storage.from_array(a0.copy(), backend="numpy", aligned_index=(H, H, 0))
     bf = storage.zeros(SHAPE, backend="numpy", aligned_index=(H, H, 0))
-    st(af, bf, domain=(NI, NJ, NK))
+    st(af, bf, domain=(NI, NJ, NK), periodic=periodic)
     return np.asarray(bf)
 
 
-def _run_pallas(defn, a0, name):
+def _run_pallas(defn, a0, name, periodic=("I", "J")):
     st = gtscript.stencil(backend="pallas", name=name)(defn)
     a = storage.from_array(a0.copy(), backend="numpy", aligned_index=(H, H, 0))
     b = storage.zeros(SHAPE, backend="numpy", aligned_index=(H, H, 0))
-    st(a, b, domain=(NI, NJ, NK), periodic=("I", "J"))
+    st(a, b, domain=(NI, NJ, NK), periodic=periodic)
     return np.asarray(b)
+
+
+def _small_blocks(monkeypatch):
+    """Force 4 x 8 blocks: many programs per grid, ragged edges."""
+    monkeypatch.setattr(
+        pallas_backend, "plan_blocks",
+        lambda ni, nj, itemsize=4: pallas_backend.BlockPlan(4, 8, 1, 2),
+    )
+
+
+def _check(defn, name, seed, periodic=("I", "J")):
+    a0 = np.random.default_rng(seed).random(SHAPE)
+    got = _run_pallas(defn, a0, name, periodic)
+    assert name in pallas_backend.LAST_PLAN, "the kernel did not run"
+    expect = _oracle(defn, a0, periodic)
+    assert np.array_equal(got[INTERIOR], expect[INTERIOR])
+    return pallas_backend.LAST_PLAN[name]
 
 
 def test_circular_engages_and_matches_oracle():
@@ -64,13 +75,7 @@ def test_circular_engages_and_matches_oracle():
             tmp = a[0, 1, 0] + a[0, -1, 0] + a[1, 0, 0]
             b = tmp[0, -1, 0] + tmp[0, 1, 0] + tmp[-1, 0, 0]
 
-    rng = np.random.default_rng(11)
-    a0 = rng.random(SHAPE)
-    got = _run_pallas(two_stage, a0, "circ_two_stage")
-    plan = pallas_backend.LAST_PLAN["circ_two_stage"]
-    assert plan["mode_a"] and plan["circular"], plan
-    expect = _oracle(two_stage, a0)
-    assert np.array_equal(got[INTERIOR], expect[INTERIOR])
+    _check(two_stage, "circ_two_stage", 11)
 
 
 def test_region_disables_circular():
@@ -81,13 +86,7 @@ def test_region_disables_circular():
             with horizontal(region[I[0] : I[0] + 2, J[0] : J[0] + 2]):
                 b = 0.0
 
-    rng = np.random.default_rng(12)
-    a0 = rng.random(SHAPE)
-    got = _run_pallas(with_region, a0, "circ_region")
-    plan = pallas_backend.LAST_PLAN["circ_region"]
-    assert not plan["circular"], plan
-    expect = _oracle(with_region, a0)
-    assert np.array_equal(got[INTERIOR], expect[INTERIOR])
+    _check(with_region, "circ_region", 12)
 
 
 def test_axis_position_j_disables_circular():
@@ -96,33 +95,21 @@ def test_axis_position_j_disables_circular():
             tmp = a[0, 1, 0] + J
             b = tmp[0, 1, 0] + tmp[0, -1, 0]
 
-    rng = np.random.default_rng(13)
-    a0 = rng.random(SHAPE)
-    got = _run_pallas(with_jpos, a0, "circ_jpos")
-    plan = pallas_backend.LAST_PLAN["circ_jpos"]
-    assert not plan["circular"], plan
-    expect = _oracle(with_jpos, a0)
-    assert np.array_equal(got[INTERIOR], expect[INTERIOR])
+    _check(with_jpos, "circ_jpos", 13)
 
 
 def test_axis_position_i_keeps_circular():
-    """I positions are unaffected by J circularity; the mode must stay on."""
-
     def with_ipos(a: F, b: F):
         with computation(PARALLEL), interval(...):
             tmp = a[0, 1, 0] + I
             b = tmp[0, 1, 0] + tmp[0, -1, 0]
 
-    rng = np.random.default_rng(14)
-    a0 = rng.random(SHAPE)
-    got = _run_pallas(with_ipos, a0, "circ_ipos")
-    plan = pallas_backend.LAST_PLAN["circ_ipos"]
-    assert plan["circular"], plan
-    expect = _oracle(with_ipos, a0)
-    assert np.array_equal(got[INTERIOR], expect[INTERIOR])
+    _check(with_ipos, "circ_ipos", 14)
 
 
 def test_serial_k_is_not_circular():
+    """A FORWARD sweep under periodic J: the K-cache carries b."""
+
     def serial(a: F, b: F):
         with computation(FORWARD):
             with interval(0, 1):
@@ -130,33 +117,20 @@ def test_serial_k_is_not_circular():
             with interval(1, None):
                 b = b[0, 0, -1] + a[0, -1, 0]
 
-    rng = np.random.default_rng(15)
-    a0 = rng.random(SHAPE)
-    got = _run_pallas(serial, a0, "circ_serial")
-    plan = pallas_backend.LAST_PLAN["circ_serial"]
-    assert not plan["mode_a"] and not plan["circular"], plan
-    expect = _oracle(serial, a0)
-    assert np.array_equal(got[INTERIOR], expect[INTERIOR])
+    plan = _check(serial, "circ_serial", 15)
+    assert plan["carries"] == ["b"], plan
 
 
 def test_periodic_i_only_is_not_circular():
-    """Circular mode needs J in the periodic axes."""
-
     def lap(a: F, b: F):
         with computation(PARALLEL), interval(...):
             b = a[1, 0, 0] + a[-1, 0, 0]
 
-    a0 = np.random.default_rng(16).random(SHAPE)
-    st = gtscript.stencil(backend="pallas", name="circ_i_only")(lap)
-    a = storage.from_array(a0.copy(), backend="numpy", aligned_index=(H, H, 0))
-    b = storage.zeros(SHAPE, backend="numpy", aligned_index=(H, H, 0))
-    st(a, b, domain=(NI, NJ, NK), periodic=("I",))
-    plan = pallas_backend.LAST_PLAN["circ_i_only"]
-    assert not plan["circular"], plan
+    _check(lap, "circ_i_only", 16, periodic=("I",))
 
 
 def test_halo_wider_than_domain_matches_oracle_error():
-    """dJ < read halo: the oracle raises; circular must not silently wrap."""
+    """dJ < read halo: the oracle raises; the kernel must not silently wrap."""
 
     def wide(a: F, b: F):
         with computation(PARALLEL), interval(...):
@@ -174,28 +148,20 @@ def test_halo_wider_than_domain_matches_oracle_error():
 
 
 def test_single_slot_execution(monkeypatch):
-    """The single-slot (unpipelined) kernel form computes identical
-    results across many tiles (store-drain ordering has no 2-slot slack
-    to hide bugs behind)."""
+    """Many small blocks, ragged at both edges: identical results."""
 
     def two_stage(a: F, b: F):
         with computation(PARALLEL), interval(...):
             tmp = a[0, 1, 0] + a[0, -1, 0] + a[1, 0, 0]
             b = tmp[0, -1, 0] + tmp[0, 1, 0] + tmp[-1, 0, 0]
 
-    rng = np.random.default_rng(21)
-    a0 = rng.random(SHAPE)
-    expect = _oracle(two_stage, a0)
-
-    monkeypatch.setenv("GT4PY_TPU_PALLAS_SLOTS", "1")
-    got = _run_pallas(two_stage, a0, "circ_1slot")
-    plan = pallas_backend.LAST_PLAN["circ_1slot"]
-    assert plan["slots"] == 1, plan
-    assert np.array_equal(got[INTERIOR], expect[INTERIOR])
+    _small_blocks(monkeypatch)
+    plan = _check(two_stage, "circ_1slot", 21)
+    assert plan["blocks"] == [(4, 8)] * plan["stages"], plan
 
 
 def test_single_slot_serial_k(monkeypatch):
-    """Mode B (serial K) under the single-slot form."""
+    """Serial K over many small blocks."""
 
     def serial(a: F, b: F):
         with computation(FORWARD):
@@ -204,51 +170,19 @@ def test_single_slot_serial_k(monkeypatch):
             with interval(1, None):
                 b = b[0, 0, -1] + a[0, -1, 0]
 
-    rng = np.random.default_rng(22)
-    a0 = rng.random(SHAPE)
-    expect = _oracle(serial, a0)
-
-    monkeypatch.setenv("GT4PY_TPU_PALLAS_SLOTS", "1")
-    got = _run_pallas(serial, a0, "circ_1slot_serial")
-    plan = pallas_backend.LAST_PLAN["circ_1slot_serial"]
-    assert plan["slots"] == 1 and not plan["mode_a"], plan
-    assert np.array_equal(got[INTERIOR], expect[INTERIOR])
+    _small_blocks(monkeypatch)
+    plan = _check(serial, "circ_1slot_serial", 22)
+    assert plan["blocks"] == [(4, 8)], plan
 
 
 def test_planner_single_slot_fallback():
-    """A VMEM budget below every 2-slot plan yields a 1-slot plan rather
-    than abandoning the kernel path."""
-    import gt4py_tpu.cartesian.backend.pallas_backend as pb
+    """The default block plan of this geometry: powers of two, no larger
+    than the domain needs, J the long side."""
 
     def lap(a: F, b: F):
         with computation(PARALLEL), interval(...):
             b = a[1, 0, 0] + a[0, 1, 0]
 
-    rng = np.random.default_rng(23)
-    a0 = rng.random(SHAPE)
-    _run_pallas(lap, a0, "circ_planner")
-    assert pb.LAST_PLAN["circ_planner"]["slots"] == 2
-
-    # shrink the budget until no 2-slot plan fits: the planner must
-    # degrade to slots=1 before abandoning the kernel path
-    orig = pb._VMEM_BUDGET
-    try:
-        budget = orig
-        seen_one_slot = False
-        for _ in range(200):
-            budget = int(budget * 0.9)  # fine steps: the 1-slot window
-            # between "2-slot impossible" and "nothing fits" is narrow
-            pb._VMEM_BUDGET = budget
-            name = f"circ_planner_b{budget}"
-            got = _run_pallas(lap, a0, name)
-            plan = pb.LAST_PLAN.get(name)
-            if plan is None:  # XLA fallback: budget below every plan
-                break
-            if plan["slots"] == 1:
-                seen_one_slot = True
-                expect = _oracle(lap, a0)
-                assert np.array_equal(got[INTERIOR], expect[INTERIOR])
-                break
-        assert seen_one_slot, "budget sweep never produced a 1-slot plan"
-    finally:
-        pb._VMEM_BUDGET = orig
+    plan = _check(lap, "circ_planner", 23)
+    (bi, bj), = plan["blocks"]
+    assert (bi, bj) == (32, 16), plan

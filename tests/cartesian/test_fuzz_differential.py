@@ -6,6 +6,9 @@ import pytest
 
 from gt4py_tpu.testing.program_gen import run_differential_case
 
+# kernel numerics for every stencil class, not only the default rule's
+pytestmark = pytest.mark.usefixtures("all_kernel_classes")
+
 
 @pytest.mark.parametrize("seed", range(100))
 def test_random_program_backend_parity(seed):
@@ -19,8 +22,8 @@ def test_random_program_pallas_parity(seed):
 
 @pytest.mark.parametrize("seed", range(12))
 def test_random_program_pallas_f32_aligned(seed):
-    """The Mosaic-eligible f32/aligned-geometry leg (interpret mode on
-    CPU; the same cases run on a real chip via tests/test_tpu_chip.py)."""
+    """The f32 wide-geometry leg (several blocks per row; interpret mode
+    on the CPU, the same cases run on the card via tests/test_gpu.py)."""
     run_differential_case(
         seed,
         backends=("pallas",),
@@ -32,25 +35,21 @@ def test_random_program_pallas_f32_aligned(seed):
 
 
 @pytest.mark.parametrize("seed", range(20))
-def test_random_program_serialized_parity(seed, monkeypatch):
-    """Forced PARALLEL->FORWARD serialization (the mixed-stencil VMEM
-    rescue, passes.serialize_parallel_k) + plane-local temp scratch:
+def test_random_program_serialized_parity(seed):
+    """PARALLEL->FORWARD serialization (passes.serialize_parallel_k):
     every mixed random program must stay at oracle parity when its
-    parallel loops evaluate plane-by-plane.  Offline sweeps run 200+
-    seeds; these pin the CI floor."""
-    monkeypatch.setenv("GT4PY_TPU_PALLAS_SERIALIZE", "1")
-    run_differential_case(seed + 50000, backends=("pallas",))
+    parallel loops evaluate plane-by-plane."""
+    run_differential_case(seed + 50000, backends=("pallas",), serialize=True)
 
 
 @pytest.mark.parametrize("seed", range(4))
-def test_random_program_serialized_bf16(seed, monkeypatch):
-    """Forced serialization x bf16: plane-local scratch at the (16, 128)
-    packing (40-seed offline sweep clean at bring-up)."""
+def test_random_program_serialized_bf16(seed):
+    """Serialization x bf16 on the wide geometry."""
     import ml_dtypes
 
-    monkeypatch.setenv("GT4PY_TPU_PALLAS_SERIALIZE", "1")
     run_differential_case(
-        seed + 70000,
+        serialize=True,
+        seed=seed + 70000,
         backends=("pallas",),
         dtype=np.dtype(ml_dtypes.bfloat16),
         aligned=True,
@@ -61,10 +60,10 @@ def test_random_program_serialized_bf16(seed, monkeypatch):
 
 
 @pytest.mark.parametrize("seed", range(8))
-def test_random_program_serialized_f32_aligned(seed, monkeypatch):
-    monkeypatch.setenv("GT4PY_TPU_PALLAS_SERIALIZE", "1")
+def test_random_program_serialized_f32_aligned(seed):
     run_differential_case(
         seed + 51000,
+        serialize=True,
         backends=("pallas",),
         dtype=np.float32,
         aligned=True,
@@ -94,14 +93,16 @@ def test_random_program_bf16_parity(seed):
 @pytest.mark.parametrize("seed", range(4))
 def test_random_program_bf16_canonical_storage(seed, unpack, monkeypatch):
     """The f16-STORAGE canonical form (the product build path: 16-bit
-    dtypes store, statements compute in f32), with and without the
-    experimental per-tile f32 unpack copies (GT4PY_TPU_PALLAS_F16_UNPACK;
-    default off -- r4 measured the copies' VMEM cost shrinking tile
-    plans).  Parity is bitwise either way (every widen is exact and the
-    rounding points coincide by construction)."""
+    dtypes store, statements compute in f32), with every stencil class
+    in the kernel (``unpack="1"``) and under the default class rule
+    (``"0"``).  Parity is bitwise either way (every widen is exact and
+    the rounding points coincide by construction)."""
     import ml_dtypes
 
-    monkeypatch.setenv("GT4PY_TPU_PALLAS_F16_UNPACK", unpack)
+    from gt4py_tpu.cartesian.backend import pallas_backend
+
+    if unpack == "0":
+        monkeypatch.setattr(pallas_backend, "KERNEL_CLASSES", frozenset({"serial"}))
     run_differential_case(
         seed,
         backends=("jax", "pallas"),
@@ -112,9 +113,9 @@ def test_random_program_bf16_canonical_storage(seed, unpack, monkeypatch):
 
 @pytest.mark.parametrize("seed", range(8))
 def test_random_program_bf16_aligned(seed):
-    """Mosaic-eligible bf16 geometry ((16, 128) packing: origin 16, I on
-    the 16 grid).  Interpret mode on CPU; the same cases run on real
-    Mosaic via tests/test_tpu_chip.py."""
+    """bf16 on the wide geometry (origin 16, I on the 16 grid).
+    Interpret mode on the CPU; the card runs the same legs
+    (tests/test_gpu.py)."""
     import ml_dtypes
 
     run_differential_case(
@@ -129,16 +130,15 @@ def test_random_program_bf16_aligned(seed):
 
 @pytest.mark.parametrize("seed", range(30))
 def test_random_program_periodic_parity(seed):
-    """Periodic execution on random programs: jax pre-fill vs the oracle
-    fill, and the pallas wrap/circular-J kernel forms vs both.  Random
-    read extents also hit the halo-wider-than-domain rejection path."""
+    """Periodic execution on random programs: the halo fill before the
+    jax and pallas executors vs the oracle's fill.  Random read extents
+    also hit the halo-wider-than-domain rejection path."""
     run_differential_case(seed, backends=("jax", "pallas"), periodic=("I", "J"))
 
 
 @pytest.mark.parametrize("seed", range(8))
 def test_random_program_periodic_f32_aligned(seed):
-    """Aligned-geometry periodic leg: the circular-J (lane-roll) mode
-    engages here for eligible programs (dJ=128 with origin 128)."""
+    """Wide-geometry periodic leg (dJ=128 with origin 128)."""
     run_differential_case(
         seed,
         backends=("pallas",),
@@ -153,8 +153,7 @@ def test_random_program_periodic_f32_aligned(seed):
 @pytest.mark.parametrize("seed", [225, 513])
 def test_fuzz_regression_dead_temp_dynamic_k(seed):
     """Sweep-found crash: a dead-code read of an unwritten temporary at a
-    dynamic K position indexed a synthetic zeros VALUE with ref-style
-    pl.ds slices inside the kernel trace (IndexError at trace time)."""
+    dynamic K position (a zeros value in the kernel)."""
     run_differential_case(seed, backends=("pallas",))
 
 

@@ -1,20 +1,14 @@
-"""Deep-K serial scans execute as K-blocked Pallas kernel passes.
+"""Deep-K serial scans in the column kernel.
 
-Columns too deep for whole-column VMEM residency used to fall back to the
-XLA executor (round-2 deferral).  Now each vertical loop becomes one pass,
-cross-loop / K-offset temporaries are promoted to HBM buffers, and every
-pass runs as a sequence of mode-B kernels over K blocks; the serial carry
-flows through the threaded buffer's already-written planes.
+Each program walks the whole column in one in-kernel K loop, whatever
+its depth: the planes a FORWARD/BACKWARD sweep reads behind itself are
+loop carries (the K-cache), temporaries crossing loops live in device
+memory, and a PARALLEL statement reading a sibling's output at a K offset
+starts a new sweep.  These run in interpret mode on the CPU; the card
+runs the same kernels (tests/test_gpu.py, chip_smoke.py).
 
 Reference analog: FillFlushToLocalKCaches
-(/root/reference/src/gt4py/cartesian/gtc/passes/oir_optimizations/caches.py:256)
--- the reference fills/flushes a register K-cache per block of the sequential
-loop; here the "cache" is the VMEM tile window and the fill/flush targets are
-the promoted HBM buffers.
-
-These run in interpret mode on CPU; the same drivers execute on real Mosaic
-via GT4PY_TPU_TEST_PLATFORM=tpu (tests/test_tpu_chip.py covers the on-chip
-leg).
+(src/gt4py/cartesian/gtc/passes/oir_optimizations/caches.py:256).
 """
 
 import numpy as np
@@ -26,18 +20,21 @@ from gt4py_tpu.cartesian.gtscript import (
     BACKWARD,
     FORWARD,
     PARALLEL,
+    K,
     computation,
     interval,
 )
 
 F = gtscript.Field[np.float64]
 
+pytestmark = pytest.mark.usefixtures("all_kernel_classes")
+
 _SEQ = 0
 
 
-def _run_pair(defn, args0, *, domain, origin=(0, 0, 0), expect_kb=True):
-    """Run ``defn`` on numpy and pallas; assert the pallas run used the
-    K-blocked plan with zero XLA fallbacks and matches the oracle."""
+def _run_pair(defn, args0, *, domain, origin=(0, 0, 0)):
+    """Run ``defn`` on numpy and pallas; assert the pallas run took the
+    kernel with zero XLA fallbacks and matches the oracle."""
     global _SEQ
     _SEQ += 1
     res = {}
@@ -49,9 +46,7 @@ def _run_pair(defn, args0, *, domain, origin=(0, 0, 0), expect_kb=True):
         if be == "pallas":
             events = pallas_backend.FALLBACK_EVENTS[before:]
             assert not events, f"pallas fell back to XLA: {events}"
-            plan = pallas_backend.LAST_PLAN.get(f"kb{_SEQ}_{be}")
-            if expect_kb:
-                assert plan and plan.get("kblocked"), plan
+            assert f"kb{_SEQ}_{be}" in pallas_backend.LAST_PLAN
         res[be] = a
     for k in args0:
         np.testing.assert_allclose(
@@ -67,6 +62,8 @@ def _mk(shape, seed, lo=0.0, hi=1.0):
 
 
 def test_tridiagonal_dk512_runs_kblocked():
+    """dK = 512 in one launch: four sweeps, carries for the recurrences."""
+
     def tridiag(inf: F, diag: F, sup: F, rhs: F, out: F):
         with computation(FORWARD):
             with interval(0, 1):
@@ -92,14 +89,13 @@ def test_tridiagonal_dk512_runs_kblocked():
     plan = _run_pair(
         tridiag, args, domain=(8, 8, 512), origin=(2, 2, 0)
     )
-    assert plan["passes"] == 2
-    # both the forward and backward pass block the 512 column
-    assert all(kb < 512 for kb in plan["KB"]), plan
+    assert plan["stages"] == 1 and len(plan["sweeps"][0]) == 4, plan
+    assert plan["carries"] == ["out", "rhs", "sup"], plan
 
 
 def test_promoted_cross_loop_temporary():
-    # tmp is written in the FORWARD loop and read (with a K offset) in the
-    # BACKWARD loop: it must be promoted to an HBM fill/flush buffer.
+    # tmp is written in the FORWARD loop and read in the BACKWARD loop: it
+    # lives in device memory, not as a plane value.
     def two_pass(a: F, out: F):
         with computation(FORWARD):
             with interval(0, 1):
@@ -115,14 +111,13 @@ def test_promoted_cross_loop_temporary():
     shape = (10, 10, 512)
     args = dict(a=_mk(shape, 7), out=np.zeros(shape))
     plan = _run_pair(two_pass, args, domain=shape)
-    assert plan["promoted"], plan
-    assert plan["passes"] == 2
+    assert "tmp" not in plan["values"] and "tmp" in plan["carries"], plan
+    assert plan["stages"] == 1
 
 
 def test_axis_position_rebases_across_blocks():
-    # bare K in an expression is AxisPosition: block-relative evaluation
-    # must still see GLOBAL K coordinates (+b0 rebase) or every block
-    # beyond the first computes with wrong indices.
+    # bare K in an expression is AxisPosition: the in-kernel loop index
+    # must be the global level in every section.
     def with_k(a: F, out: F):
         with computation(FORWARD):
             with interval(0, 1):
@@ -136,7 +131,7 @@ def test_axis_position_rebases_across_blocks():
 
 
 def test_non_power_of_two_depth():
-    # dK=2000: ragged final block (2000 = 3*512 + 464) must carry correctly.
+    # dK=2000: a long carry chain in one loop.
     def cumsum(a: F, out: F):
         with computation(FORWARD):
             with interval(0, 1):
@@ -150,8 +145,8 @@ def test_non_power_of_two_depth():
 
 
 def test_sections_crossing_block_boundaries():
-    # interval edges that are not block-aligned: clipping must split the
-    # section across blocks without dropping or duplicating planes.
+    # consecutive sections are consecutive sweeps: the carry crosses each
+    # section edge through device memory without dropping a plane.
     def staged(a: F, out: F):
         with computation(FORWARD):
             with interval(0, 1):
@@ -179,11 +174,11 @@ def test_backward_only_deep_scan():
     shape = (8, 8, 2048)
     args = dict(a=_mk(shape, 19), out=np.zeros(shape))
     plan = _run_pair(back, args, domain=shape)
-    assert plan["passes"] == 1
+    assert [sw[0] for sw in plan["sweeps"][0]] == ["BACKWARD", "BACKWARD"]
 
 
 def test_shallow_k_does_not_use_kblocked():
-    # control: a dK=16 scan stays on the whole-column kernel path.
+    # control: a shallow scan takes the same single-launch form.
     def cumsum(a: F, out: F):
         with computation(FORWARD):
             with interval(0, 1):
@@ -193,16 +188,14 @@ def test_shallow_k_does_not_use_kblocked():
 
     shape = (16, 16, 16)
     args = dict(a=_mk(shape, 23), out=np.zeros(shape))
-    plan = _run_pair(cumsum, args, domain=shape, expect_kb=False)
-    assert not (plan or {}).get("kblocked"), plan
+    plan = _run_pair(cumsum, args, domain=shape)
+    assert plan["stages"] == 1 and plan["carries"] == ["out"], plan
 
 
 def test_parallel_cross_statement_k_dependency():
     """Regression (round-3 review): a PARALLEL statement reading a
     sibling statement's output at a K offset must see the fully-updated
-    planes -- per-loop blocking interleaved the statements per block and
-    served stale planes at every block boundary.  PARALLEL loops now
-    split into one pass per STATEMENT."""
+    planes: the K-offset read of a sibling's output starts a new sweep."""
     def two_stmt(inp: F, out: F):
         with computation(PARALLEL):
             with interval(0, -1):
@@ -212,8 +205,5 @@ def test_parallel_cross_statement_k_dependency():
 
     shape = (12, 12, 512)
     args = dict(inp=_mk(shape, 29), out=np.zeros(shape))
-    plan = _run_pair(two_stmt, args, domain=shape, expect_kb=False)
-    # whichever plan executes it (whole-column kernel or K-blocked),
-    # parity is the invariant; if blocked, tmp must have been promoted
-    if plan and plan.get("kblocked"):
-        assert plan["promoted"], plan
+    plan = _run_pair(two_stmt, args, domain=shape)
+    assert len(plan["sweeps"][0]) == 2 and "tmp" not in plan["values"], plan

@@ -1,91 +1,107 @@
-"""Packing-aware pallas tile planning: 16-bit dtypes DMA at the (16, 128)
-VMEM tiling, so aligned-mode plans must expand halos and pick tile sizes on
-the per-dtype sublane multiple.  These tests drive the planner directly
-with aligned=True (the test session pins CPU, where kernels otherwise run
-in interpret mode and skip alignment); kernel execution itself is covered
-by the parity/fuzz suites in interpret mode and by tests/test_tpu_chip.py
-on real Mosaic."""
+"""Block planning of the column kernel (``pallas_backend.plan_blocks``)
+and 16-bit / mixed-dtype stencils through it.
+
+Blocks are powers of two, J rows of 256 bytes at 4-byte types (two
+128-byte transactions), at most 512 points; ragged domains are masked.
+"""
 
 import ml_dtypes
 import numpy as np
 import pytest
 
 from gt4py_tpu.cartesian import gtscript
-from gt4py_tpu.cartesian.backend.jax_backend import _FieldMeta
-from gt4py_tpu.cartesian.backend.pallas_backend import _pad_tile, _sublane
-from gt4py_tpu.cartesian.gtscript import PARALLEL, FORWARD, bfloat16, computation, interval
+from gt4py_tpu.cartesian.backend import pallas_backend
+from gt4py_tpu.cartesian.backend.pallas_backend import BlockPlan, plan_blocks
+from gt4py_tpu.cartesian.gtscript import PARALLEL, bfloat16, computation, interval
 
 BF16 = np.dtype(ml_dtypes.bfloat16)
-F32 = np.dtype(np.float32)
-
 FieldBF = gtscript.Field[bfloat16]
+Field32 = gtscript.Field[np.float32]
+
+pytestmark = pytest.mark.usefixtures("all_kernel_classes")
+
+
+def _pow2(n):
+    return n > 0 and n & (n - 1) == 0
 
 
 def test_sublane_by_dtype():
-    assert _sublane(np.float32) == 8
-    assert _sublane(np.int32) == 8
-    assert _sublane(ml_dtypes.bfloat16) == 16
-    assert _sublane(np.float16) == 16
-    assert _sublane(np.int8) == 32
-    assert _sublane(np.bool_) == 32
-    assert _sublane(np.float64) == 8  # 64-bit never reaches Mosaic
+    """Row width by element size: 64 points up to 4 bytes, 32 at 8."""
+    assert plan_blocks(512, 512, 4).bj == 64
+    assert plan_blocks(512, 512, 2).bj == 64
+    assert plan_blocks(512, 512, 8).bj == 32
+    assert plan_blocks(512, 512, 4) == BlockPlan(8, 64, 4, 2)
 
 
 def test_pad_tile_respects_packing():
-    assert _pad_tile(9, 130) == (16, 256)
-    assert _pad_tile(9, 130, 16) == (16, 256)
-    assert _pad_tile(17, 128, 16) == (32, 128)
-    assert _pad_tile(1, 1, 16) == (1, 1)
+    """Ragged sizes get power-of-two blocks no larger than needed."""
+    for n in (1, 3, 7, 33, 130):
+        b = plan_blocks(n, n)
+        assert _pow2(b.bi) and _pow2(b.bj)
+        assert b.bi * b.bj <= 512
+        assert b.bj < 2 * n and b.bi < 2 * max(n, 1)
 
 
-def _meta(dtype, origin=(16, 128, 0), shape=(160, 384, 8)):
-    return _FieldMeta(
-        shape=shape, origin=origin, dtype=np.dtype(dtype),
-        dimensions=(True, True, True), data_ndim=0,
-    )
+def _run(defn, dtype, shape, name, out_dtype=None):
+    res = {}
+    rng = np.random.default_rng(0)
+    a0 = rng.random(shape).astype(dtype)
+    for be in ("numpy", "pallas"):
+        st = gtscript.stencil(backend=be, name=f"{name}_{be}")(defn)
+        out = np.zeros(shape, out_dtype or dtype)
+        before = pallas_backend.FALLBACK_EVENTS.total
+        st(a0.copy(), out, origin=(2, 2, 0),
+           domain=(shape[0] - 4, shape[1] - 4, shape[2]))
+        if be == "pallas":
+            assert pallas_backend.FALLBACK_EVENTS.total == before
+            plan = pallas_backend.LAST_PLAN[f"{name}_{be}"]
+        res[be] = out.astype(np.float64)
+    return res, plan
 
 
-def _backend():
+def test_bf16_halos_align_to_16():
+    """bf16 through the kernel: the 2-wide read halo on both sides."""
+
     def defn(inp: FieldBF, out: FieldBF):
         with computation(PARALLEL), interval(...):
             out = inp[1, 0, 0] + inp[-2, 0, 0]
 
-    return gtscript.stencil(backend="pallas", name="bf16_planner")(defn).backend
-
-
-def test_bf16_halos_align_to_16():
-    be = _backend()
-    metas = {"inp": _meta(BF16), "out": _meta(BF16)}
-    halos = be._halos_ij(metas, aligned=True, domain=(128, 128, 8), expand_j=False)
-    hi0, hi1, _, _ = halos["inp"]
-    oi = metas["inp"].origin[0]
-    assert (oi - hi0) % 16 == 0  # DMA window start on the packing
-    assert (hi0 + hi1) % 16 == 0  # window size stays a multiple too
-    assert hi0 >= 2 and hi1 >= 1  # still covers the stencil extents
+    res, _ = _run(defn, BF16, (20, 70, 3), "bf16_halo")
+    np.testing.assert_allclose(res["pallas"], res["numpy"], rtol=1e-2)
 
 
 def test_bf16_row_plan_tiles_are_16_multiples():
-    be = _backend()
-    metas = {"inp": _meta(BF16), "out": _meta(BF16)}
-    TK, TI, halos, slots = be._plan_rows(metas, (128, 128, 8), aligned=True)
-    assert TI % 16 == 0
+    """A bf16 stencil plans 64-wide J rows like f32."""
+
+    def defn(inp: FieldBF, out: FieldBF):
+        with computation(PARALLEL), interval(...):
+            out = inp[0, 1, 0] * 0.5
+
+    res, plan = _run(defn, BF16, (20, 140, 3), "bf16_rows")
+    assert plan["blocks"] == [(8, 64)], plan
+    np.testing.assert_allclose(res["pallas"], res["numpy"], rtol=1e-2)
 
 
 def test_mixed_f32_bf16_uses_strictest_packing():
-    be = _backend()
-    metas = {"inp": _meta(BF16), "out": _meta(F32)}
-    assert be._sub_max(metas) == 16
-    TK, TI, halos, slots = be._plan_rows(metas, (128, 128, 8), aligned=True)
-    assert TI % 16 == 0
+    """Mixed bf16 / f64 fields plan by the widest element (8 bytes)."""
+    F64 = gtscript.Field[np.float64]
+
+    def defn(inp: FieldBF, out: F64):
+        with computation(PARALLEL), interval(...):
+            out = inp[1, 0, 0] + 1.0
+
+    res, plan = _run(defn, BF16, (20, 70, 3), "mixed_width", np.float64)
+    assert plan["blocks"] == [(16, 32)], plan
+    np.testing.assert_allclose(res["pallas"], res["numpy"], rtol=1e-2)
 
 
 def test_f32_plans_unchanged_by_packing_awareness():
-    """sub=8 must reproduce the pre-change behavior exactly for 4-byte
-    dtypes (the production f32 path)."""
-    be = _backend()
-    metas = {"inp": _meta(F32, origin=(8, 128, 0)), "out": _meta(F32, origin=(8, 128, 0))}
-    halos = be._halos_ij(metas, aligned=True, domain=(128, 128, 8), expand_j=False)
-    hi0, hi1, _, _ = halos["inp"]
-    assert (8 - hi0) % 8 == 0 and (hi0 + hi1) % 8 == 0
-    TK, TI, h2, slots = be._plan_rows(metas, (128, 128, 8), aligned=True)
-    assert TI % 8 == 0
+    """f32: 8 x 64 blocks at the bench shape, exact parity."""
+
+    def defn(inp: Field32, out: Field32):
+        with computation(PARALLEL), interval(...):
+            out = inp[1, 0, 0] - inp[0, -1, 0]
+
+    res, plan = _run(defn, np.float32, (20, 70, 3), "f32_plan")
+    assert plan["blocks"] == [(8, 64)], plan
+    np.testing.assert_array_equal(res["pallas"], res["numpy"])

@@ -6,8 +6,7 @@ fall back to the XLA executor *transparently*, so a bitwise-equal result
 cannot distinguish the paths.  These tests assert via
 ``pallas_backend.FALLBACK_EVENTS`` that the features in
 ``tests.definitions.NATIVE_SUPPORT["pallas"]`` really execute in-kernel
-(interpret mode here; the same drivers run on real Mosaic via
-``GT4PY_TPU_TEST_PLATFORM=tpu``, see docs/performance.md).
+(interpret mode here; tests/test_gpu.py runs kernels on the card).
 """
 
 import numpy as np
@@ -22,6 +21,9 @@ from gt4py_tpu.cartesian.gtscript import (
     computation,
     interval,
 )
+
+# kernel numerics for every stencil class, not only the default rule's
+pytestmark = pytest.mark.usefixtures("all_kernel_classes")
 
 F32 = gtscript.Field[np.float32]
 I32 = gtscript.Field[np.int32]
@@ -89,7 +91,7 @@ def test_absolute_k_in_scan_runs_in_kernel():
 
 
 def test_data_dims_split_runs_in_kernel():
-    """Statically-indexed data-dims fields run as per-component Mosaic
+    """Statically-indexed data-dims fields run as per-component column
     kernels (passes.split_data_dims); bitwise vs the jax executor."""
 
     def defn(

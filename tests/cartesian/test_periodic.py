@@ -4,11 +4,11 @@ Semantics (defined by the numpy oracle, numpy_backend._periodic_fill):
 before the stencil runs, the I/J halos of every field read with nonzero
 horizontal extent are filled from the opposite interior edge, width = the
 field's read extent.  The jax backend pre-fills functionally at trace
-entry; the pallas backend folds the wrap into its tile-window DMA
-(wrapped windows), bitwise-identical by construction.
+entry; the pallas backend fills the same way before its kernels,
+bitwise-identical by construction.
 
 The reference has no such execution option (models there fill halos by
-hand between stages); this is the TPU-first replacement for those
+hand between stages); this is the replacement for those
 fill passes -- see models/fv_advection.py.
 """
 
@@ -18,6 +18,9 @@ import pytest
 from gt4py_tpu import storage
 from gt4py_tpu.cartesian import gtscript
 from gt4py_tpu.cartesian.gtscript import BACKWARD, FORWARD, PARALLEL, computation, interval
+
+# kernel numerics for every stencil class, not only the default rule's
+pytestmark = pytest.mark.usefixtures("all_kernel_classes")
 
 F = gtscript.Field[np.float64]
 

@@ -1,19 +1,16 @@
-"""Serialized PARALLEL K + plane-local temps (mixed-stencil VMEM rescue).
+"""Serialized PARALLEL K + plane-local temps, and the column kernel's own
+plan for the same stencils.
 
 ``passes.serialize_parallel_k`` rewrites PARALLEL vertical loops to
 FORWARD -- bitwise-identical whenever no same-loop-written field is read
 at a nonzero K offset (guaranteed by the GTIR race rules, re-checked for
 raw IR) -- and ``passes.plane_local_temps`` classifies temporaries whose
-kernel scratch can be a single K plane.  Together they let mixed
-PARALLEL+serial stencils whose whole-column mode-B plan exceeds VMEM
-(the fused whole-dycore kernel) re-plan all-serial and stay on the
-Mosaic path; plane-local temps also shrink VMEM for ordinary serial
-stencils (vadv), unlocking larger tiles.
+storage can be a single K plane.  Both are pure IR rewrites; the column
+kernel must give the same numbers on the rewritten IR.  The kernel's own
+planner keeps such temporaries as plane values (``LAST_PLAN["values"]``).
 
 Reference analog: OIR LocalTemporariesToScalars + K-caches
-(src/gt4py/cartesian/gtc/passes/oir_optimizations/{temporaries,caches}.py);
-the serialization itself is TPU-new (XLA/Mosaic value-stack pressure has
-no reference counterpart).
+(src/gt4py/cartesian/gtc/passes/oir_optimizations/{temporaries,caches}.py).
 """
 
 import copy
@@ -33,6 +30,8 @@ from gt4py_tpu.cartesian.gtscript import (
 )
 
 F = gtscript.Field[np.float64]
+
+pytestmark = pytest.mark.usefixtures("all_kernel_classes")
 
 
 def _backend_of(stencil_obj):
@@ -207,13 +206,21 @@ def _run_pair(stencil_obj_pallas, stencil_obj_numpy, shape, domain, origin,
     return kw_np, kw_pl
 
 
+def _run_ir(stencil, arrays, domain, origin, scalars=None):
+    """Run raw IR through the pallas backend (every class to the kernel)."""
+    be = pallas_backend.PallasBackend(analyze(stencil), {})
+    out = be.run(
+        {k: v.copy() for k, v in arrays.items()}, dict(scalars or {}), domain,
+        {k: origin for k in arrays},
+    )
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 @pytest.mark.parametrize("force", [False, True])
-def test_mixed_stencil_parity_serialized(monkeypatch, force):
-    """numpy oracle vs the pallas kernel with serialization forced on/off:
-    rtol 1e-12 f64 (the serialized form must be bitwise-equal to the
-    parallel evaluation; both sit at oracle parity)."""
-    if force:
-        monkeypatch.setenv("GT4PY_TPU_PALLAS_SERIALIZE", "1")
+def test_mixed_stencil_parity_serialized(force):
+    """numpy oracle vs the kernel on the stencil and on its serialized
+    form: rtol 1e-12 f64 (the serialized form must be bitwise-equal to
+    the parallel evaluation; both sit at oracle parity)."""
 
     def defn(a: F, b: F, out: F):
         with computation(PARALLEL), interval(...):
@@ -231,41 +238,47 @@ def test_mixed_stencil_parity_serialized(monkeypatch, force):
                 out = out + out[0, 0, 1] * 0.25
 
     name = f"ser_parity_{force}"
-    st_p = gtscript.stencil(backend="pallas", name=name)(defn)
     st_n = gtscript.stencil(backend="numpy", name=name + "_np")(defn)
+    stencil = st_n.analysis.stencil
+    if force:
+        stencil = passes.serialize_parallel_k(stencil)
+        assert stencil is not None
 
     shape, domain, origin = (16, 14, 9), (8, 6, 7), (4, 4, 1)
-    out_np, out_pl = _run_pair(st_p, st_n, shape, domain, origin)
-    np.testing.assert_allclose(
-        out_pl["out"], out_np["out"], rtol=1e-12, atol=1e-12
-    )
+    rng = np.random.default_rng(0)
+    arrays = {p: rng.random(shape) for p in st_n.analysis.stencil.field_decls}
+    ref = {k: v.copy() for k, v in arrays.items()}
+    st_n(**ref, origin=origin, domain=domain)
+    got = _run_ir(stencil, arrays, domain, origin)
+    np.testing.assert_allclose(got["out"], ref["out"], rtol=1e-12, atol=1e-12)
 
 
-def test_fused_dycore_serialized_bitwise_vs_baseline(monkeypatch):
-    """The fused whole-dycore kernel: forced-serialized run is BITWISE
-    equal to the whole-column evaluation at a shape where both plan."""
-    import jax.numpy as jnp
-
-    from gt4py_tpu import config
+def test_fused_dycore_serialized_bitwise_vs_baseline():
+    """The fused whole-dycore stencil through the kernel: its serialized
+    form is BITWISE equal to the parallel one."""
     from gt4py_tpu.models import dycore
 
-    monkeypatch.setattr(config, "ASSUME_TPU_PLANNING", True)
-    ni, nj, nk = 16, 128, 8
-    md = dycore.MiniDycore(ni, nj, nk, backend="pallas", aligned=True)
-    state = {k: jnp.asarray(v) for k, v in md.init_state(seed=5).items()}
-    step = md.step_fn(fused=True)
-
-    base = step(dict(state))
-    monkeypatch.setenv("GT4PY_TPU_PALLAS_SERIALIZE", "1")
-    ser = step(dict(state))
-    plan = pallas_backend.LAST_PLAN.get("dycore_fused_float32")
-    assert plan and plan.get("serialized"), plan
-    for k in ("u", "utens_stage"):
-        assert np.array_equal(np.asarray(base[k]), np.asarray(ser[k])), k
+    md = dycore.MiniDycore(16, 24, 8, backend="jax")
+    st = md.fused.analysis.stencil
+    ser = passes.serialize_parallel_k(st)
+    assert ser is not None
+    state = md.init_state(seed=5)
+    arrays = {
+        n: np.transpose(state.get(n, state["u"]), (1, 2, 0)).copy()
+        for n in st.field_decls
+    }
+    origin = (md.oi, md.oj, 0)
+    sc = {"dtr_stage": np.float32(3.0)}
+    before = pallas_backend.FALLBACK_EVENTS.total
+    base = _run_ir(st, arrays, (16, 24, 8), origin, sc)
+    assert pallas_backend.FALLBACK_EVENTS.total == before
+    out = _run_ir(ser, arrays, (16, 24, 8), origin, sc)
+    for k in base:
+        assert np.array_equal(base[k], out[k]), k
 
 
 # --------------------------------------------------------------------- #
-# the VMEM rescue, pinned at bench scale (plan-only, CPU)
+# the column kernel's plan at bench scale (pure planning, no tracing)
 # --------------------------------------------------------------------- #
 
 
@@ -284,25 +297,27 @@ def _bench_metas(md, be):
 
 
 def test_fused_dycore_plans_serialized_at_bench_scale():
-    """512^2x80: the whole-column mode-B plan exceeds VMEM (the r5
-    measured 14.8 ms XLA-fallback cliff); the serialized rescue keeps it
-    on the kernel path."""
+    """512^2x80: the fused dycore plans as ONE launch of serial sweeps;
+    blocks of 8 x 64 points (256 B rows of f32)."""
     from gt4py_tpu.models import dycore
 
-    md = dycore.MiniDycore(512, 512, 80, backend="pallas", aligned=True)
+    md = dycore.MiniDycore(512, 512, 80, backend="pallas")
     be = md.fused.backend
-    plan = be.plan_tpu(_bench_metas(md, be), (512, 512, 80),
-                       periodic=("I", "J"))
-    assert plan.get("serialized"), plan
-    assert plan["TK"] == 80 and not plan["mode_a"]
+    stages, values, carries, blocks = be.plan(
+        _bench_metas(md, be), (512, 512, 80)
+    )
+    assert len(stages) >= 1
+    assert any(sw.order != ir.LoopOrder.PARALLEL for st in stages for sw in st.sweeps)
+    assert all((b.bi, b.bj) == (8, 64) for b in blocks), blocks
 
 
 def test_vadv_plane_temps_unlock_larger_tiles():
-    """Plane-local temp accounting must keep the bench vadv kernel at
-    TI >= 16 (it was VMEM-capped at TI=8 with whole-K temp scratch)."""
+    """The bench vadv kernel keeps the per-plane coefficients as plane
+    values (no device-memory traffic), the same set the plane-local pass
+    finds, and carries the recurrence columns."""
     from gt4py_tpu.models import dycore
 
-    md = dycore.MiniDycore(512, 512, 80, backend="pallas", aligned=True)
+    md = dycore.MiniDycore(512, 512, 80, backend="pallas")
     be = md.vadv_upd.backend
     state = {k: np.asarray(v) for k, v in md.init_state().items()}
     arrays = dict(
@@ -314,5 +329,6 @@ def test_vadv_plane_temps_unlock_larger_tiles():
     metas, _ = be._prepare(
         arrays, {k: orig for k in arrays}, as_device=False, physical_in=True
     )
-    plan = be.plan_tpu(metas, (512, 512, 80), periodic=("I", "J"))
-    assert plan["TI"] >= 16, plan
+    stages, values, carries, blocks = be.plan(metas, (512, 512, 80))
+    assert {"gcv", "cs", "bcol", "divided", "correction_term"} <= values
+    assert [(b.bi, b.bj) for b in blocks] == [(8, 64)] * len(stages)

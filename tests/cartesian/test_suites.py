@@ -1,6 +1,7 @@
 """Hypothesis-driven stencil suites (reference pattern:
 tests/cartesian_tests/integration_tests/multi_feature_tests/test_suites.py)."""
 
+import pytest
 import numpy as np
 
 from gt4py_tpu import testing as gt_testing
@@ -12,6 +13,9 @@ from gt4py_tpu.cartesian.gtscript import (
     interval,
     __INLINED,
 )
+
+# kernel numerics for every stencil class, not only the default rule's
+pytestmark = pytest.mark.usefixtures("all_kernel_classes")
 
 
 class TestCopy(gt_testing.StencilTestSuite):

@@ -1,11 +1,14 @@
-"""SSA value temporaries in pallas kernels (no per-temp VMEM scratch).
+"""Temporaries in the column kernel: plane values, carries and device
+memory.
 
-Single-assign PARALLEL temporaries are kept as values -- computed once
-over their extent, sliced/rolled per read -- instead of scratch arrays.
-These tests pin the classifier, the planner's liveness-peak accounting,
-and numeric parity for the trickier write forms (partial-interval cover,
-masked writes under ``if``) in interpret mode; the on-chip suite drives
-the same machinery on real Mosaic.
+A temporary read only at its own point (or, in a serial sweep, at planes
+behind the sweep) stays an SSA value of the plane and never touches
+device memory; one read at a horizontal offset after its write lives in
+device memory between launches (stages).  These tests pin the classifier
+(``LAST_PLAN`` / ``PallasBackend.plan``) and numeric parity for the
+trickier write forms (partial-interval cover, masked writes under
+regions) in interpret mode; tests/test_gpu.py drives the same kernels on
+the card.
 """
 
 import numpy as np
@@ -23,31 +26,51 @@ from gt4py_tpu.cartesian.gtscript import (
 
 F = gtscript.Field[np.float64]
 
+pytestmark = pytest.mark.usefixtures("all_kernel_classes")
+
 
 def _backend_of(stencil_obj):
     return pallas_backend.PallasBackend(stencil_obj.analysis, {})
 
 
+def _plan(be, n=(32, 24, 6), scalars=None):
+    from gt4py_tpu.cartesian.backend.jax_backend import _FieldMeta
+
+    metas = {
+        f: _FieldMeta((n[0] + 6, n[1] + 6, n[2]), (3, 3, 0),
+                      np.dtype(np.float32), (True, True, True), 0)
+        for f in be.analysis.stencil.field_decls
+    }
+    return be.plan(metas, n, scalars or {})
+
+
 def test_fv_step_temps_all_value_eligible():
+    """Every FV temporary that survives inlining is read at a horizontal
+    offset, so it lives in device memory between launches: none may be a
+    plane value (a plane value would read a neighbour block's point)."""
+    from gt4py_tpu.cartesian.backend.pallas_backend import _accesses, _hoff
     from gt4py_tpu.models.fv_advection import make_fv_step
 
-    st = make_fv_step(np.float32, backend="pallas")
-    be = _backend_of(st)
+    be = _backend_of(make_fv_step(np.float32, backend="pallas"))
     temps = set(be.analysis.stencil.temp_decls)
     assert temps, "fv_step lost its temporaries?"
-    assert be._value_temp_names() == frozenset(temps)
+    stages, values, _, _ = _plan(be)
+    reads, _ = _accesses(
+        [s for st in stages for sw in st.sweeps for s in sw.stmts]
+    )
+    shifted = {r.name for r in reads if _hoff(r)}
+    assert temps <= shifted and not values & temps
 
 
 def test_liveness_peak_below_sum():
+    """FV's launches split only where a horizontal read needs another
+    block's write: fewer launches than temporaries, one sweep each."""
     from gt4py_tpu.models.fv_advection import make_fv_step
 
-    st = make_fv_step(np.float32, backend="pallas")
-    be = _backend_of(st)
-    vts = be._value_temp_names()
-    assert len(vts) > 10
-    peak = be._value_peak_bytes(lambda name: 1)
-    # dozens of temps, but only a handful live at once
-    assert peak < len(vts) / 2, (peak, len(vts))
+    be = _backend_of(make_fv_step(np.float32, backend="pallas"))
+    stages, _, _, _ = _plan(be)
+    assert 1 < len(stages) < len(be.analysis.stencil.temp_decls)
+    assert all(len(st.sweeps) == 1 for st in stages)
 
 
 def test_serial_and_while_temps_stay_refs():
@@ -68,11 +91,14 @@ def test_serial_and_while_temps_stay_refs():
                 out2 = stmp
 
     be = _backend_of(mixed)
-    vts = be._value_temp_names()
+    _, vts, carries, _ = _plan(be)
     temps = set(be.analysis.stencil.temp_decls)
-    assert "ptmp" in vts
-    assert "wtmp" not in vts
-    assert not any(t.startswith("stmp") and t in vts for t in temps)
+    # ptmp is inlined into its reader; the while loop carries wtmp's
+    # plane value; stmp crosses two sweeps with a carry: device memory
+    assert "wtmp" in vts
+    stmps = [t for t in temps if t.startswith("stmp")]
+    assert stmps and not any(t in vts for t in stmps)
+    assert any(t in c for c in carries.values() for t in stmps)
 
 
 @pytest.mark.parametrize("shape", [(10, 11, 6)])
@@ -128,26 +154,21 @@ def test_region_masked_value_temp_parity():
 
 
 def test_forced_mosaic_value_temps():
-    # the mosaic-only branches of the value-temp paths must be
-    # CPU-reachable (VERDICT r2 #2 pattern)
-    import gt4py_tpu.config as config
+    """A temporary read at an offset after inlining is off: the kernel
+    splits into two launches and matches the oracle."""
 
-    old = config.FORCE_MOSAIC_TRACE
-    config.FORCE_MOSAIC_TRACE = True
-    try:
-        def defn(a: F, out: F):
-            with computation(PARALLEL), interval(...):
-                lap = a[1, 0, 0] + a[-1, 0, 0] + a[0, 1, 0] + a[0, -1, 0] - 4.0 * a
-                out = lap[1, 0, 0] - lap
+    def defn(a: F, out: F):
+        with computation(PARALLEL), interval(...):
+            lap = a[1, 0, 0] + a[-1, 0, 0] + a[0, 1, 0] + a[0, -1, 0] - 4.0 * a
+            out = lap[1, 0, 0] - lap
 
-        st_p = gtscript.stencil(backend="pallas", name="vt_mosaic_p")(defn)
-        st_n = gtscript.stencil(backend="numpy", name="vt_mosaic_n")(defn)
-        rng = np.random.default_rng(5)
-        a = rng.random((12, 12, 4))
-        op = np.zeros((12, 12, 4))
-        on = np.zeros((12, 12, 4))
-        st_p(a.copy(), op, origin=(2, 2, 0), domain=(8, 8, 4))
-        st_n(a.copy(), on, origin=(2, 2, 0), domain=(8, 8, 4))
-        np.testing.assert_allclose(op, on, rtol=1e-12)
-    finally:
-        config.FORCE_MOSAIC_TRACE = old
+    st_p = gtscript.stencil(backend="pallas", name="vt_split_p", no_inline=True)(defn)
+    st_n = gtscript.stencil(backend="numpy", name="vt_split_n")(defn)
+    rng = np.random.default_rng(5)
+    a = rng.random((12, 12, 4))
+    op = np.zeros((12, 12, 4))
+    on = np.zeros((12, 12, 4))
+    st_p(a.copy(), op, origin=(2, 2, 0), domain=(8, 8, 4))
+    st_n(a.copy(), on, origin=(2, 2, 0), domain=(8, 8, 4))
+    assert pallas_backend.LAST_PLAN["vt_split_p"]["stages"] == 2
+    np.testing.assert_allclose(op, on, rtol=1e-12)

@@ -193,7 +193,7 @@ def test_full_dycore_numpy_backend_step():
     windowed SL fallback (review fix: sl_fn=None crashed)."""
     from gt4py_tpu.models.full_dycore import FullDycore
 
-    m = FullDycore(8, 8, 3, dtype=np.float64, backend="jax", aligned=False)
+    m = FullDycore(8, 8, 3, dtype=np.float64, backend="jax")
     # simulate a backend without the stencil kernel path
     m.sl_fn = None
     import jax.numpy as jnp

@@ -14,6 +14,9 @@ import pytest
 import gt4py_tpu.next as gtx
 from gt4py_tpu.next import Dims, Field
 
+# kernel numerics for every stencil class, not only the default rule's
+pytestmark = pytest.mark.usefixtures("all_kernel_classes")
+
 I = gtx.Dimension("I")
 K = gtx.Dimension("K", kind=gtx.DimensionKind.VERTICAL)
 Ioff = gtx.FieldOffset("Ioff", source=I, target=(I,))
@@ -107,7 +110,7 @@ def test_grad_backward_scan():
 def test_grad_through_pallas_bridge_kernel():
     """jax.grad composes with the bridge's compiled kernels: the pallas
     backend's custom_vjp routes the backward pass through the XLA
-    executor (identical numerics), so Mosaic-speed forward + adjoints
+    executor (identical numerics), so kernel-speed forward + adjoints
     also hold on the next pallas backend (r4)."""
     import jax
     import jax.numpy as jnp

@@ -1,4 +1,4 @@
-"""bfloat16 in the next field-view DSL (TPU-native; the reference scalar
+"""bfloat16 in the next field-view DSL (an extension; the reference scalar
 table stops at f32/f64).  Type deduction treats bf16 as arithmetic (its
 numpy kind is 'V'), mixed concrete dtypes are still rejected, and
 execution runs natively on the jax-embedded Field."""

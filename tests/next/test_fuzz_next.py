@@ -6,6 +6,9 @@ import pytest
 
 from gt4py_tpu.testing.next_fuzz import run_differential_case
 
+# kernel numerics for every stencil class, not only the default rule's
+pytestmark = pytest.mark.usefixtures("all_kernel_classes")
+
 
 @pytest.mark.parametrize("seed", range(60))
 def test_random_field_operator_parity(seed):

@@ -27,6 +27,9 @@ from gt4py_tpu.next import (
 )
 from gt4py_tpu.next.builtins import neighbor_sum
 
+# kernel numerics for every stencil class, not only the default rule's
+pytestmark = pytest.mark.usefixtures("all_kernel_classes")
+
 I = gtx.Dimension("I")
 J = gtx.Dimension("J")
 K = gtx.Dimension("K", kind=gtx.DimensionKind.VERTICAL)

@@ -8,7 +8,7 @@ clip-to-range semantics), and on quasi-structured meshes the composite
 table refits affine, so the chain runs as dense strided windows with no
 materialized intermediate.  Reference behavior: sequential premap
 composition (src/gt4py/next/embedded/nd_array_field.py:240-376); the
-folding itself is TPU-new (XLA gathers are the cost being removed).
+folding itself is new here (XLA gathers are the cost being removed).
 """
 
 import numpy as np

@@ -1,7 +1,7 @@
 """Whole-program kernel fusion on the next pallas backend.
 
 A multi-statement ``@program`` lowers to ONE fused cartesian Pallas
-kernel (intermediate Fields become in-VMEM temporaries) plus thin
+kernel (intermediate Fields become temporaries) plus thin
 restricted runs that complete each intermediate's halo region.
 Reference analog: global-temporaries extraction + as_fieldop fusion
 (src/gt4py/next/iterator/transforms/global_tmps.py:312,
@@ -18,6 +18,9 @@ import pytest
 import gt4py_tpu.next as gtx
 from gt4py_tpu.next import Dims, Field, backends, concat_where, program, where
 from gt4py_tpu.next import pallas_bridge
+
+# kernel numerics for every stencil class, not only the default rule's
+pytestmark = pytest.mark.usefixtures("all_kernel_classes")
 
 I = gtx.Dimension("I")
 J = gtx.Dimension("J")

@@ -1,6 +1,4 @@
-"""Sort-routing gathers for irregular tables (next/sort_route.py) and
-the Benes butterfly permutation engine (next/benes.py + native C++
-router).
+"""Sort-routing gathers for irregular tables (next/sort_route.py).
 
 Contract: EXACT equality with the clipped-``take`` base path -- the
 routing only MOVES values (seed permutation + doubling rounds +
@@ -15,7 +13,6 @@ jnp = pytest.importorskip("jax.numpy")
 import gt4py_tpu.next as gtx
 from gt4py_tpu.next import Dims, Field, FieldOffset, backends, neighbor_sum
 from gt4py_tpu.next import affine_remap as ar
-from gt4py_tpu.next import benes
 from gt4py_tpu.next import sort_route as sr
 from gt4py_tpu.next.testing import (
     E2VDim,
@@ -142,73 +139,28 @@ def test_env_kill_switch(monkeypatch):
     assert sr.plan_for(mesh.v2e) is None
 
 
-# --------------------------- benes network --------------------------- #
-
-
-def test_benes_router_fuzz():
-    """C++ router vs numpy stage simulation across sizes and seeds."""
-    if benes.route(np.array([1, 0], dtype=np.int64)) is None:
-        pytest.skip("native router unavailable")
-    for k in (1, 3, 5, 8, 11):
-        n = 1 << k
-        for seed in range(3):
-            perm = np.random.default_rng(100 * k + seed).permutation(n)
-            ctrl = benes.route(perm.astype(np.int64))
-            y = benes.simulate(np.arange(n, dtype=np.int64), ctrl)
-            assert np.array_equal(y, perm), (k, seed)
+# ------------------------ static permutations ------------------------ #
 
 
 @pytest.mark.parametrize("P", [512, 4096, 5000])
-def test_benes_executor_interpret(P, monkeypatch):
-    """The Pallas butterfly (interpret mode) applies exactly the routed
-    permutation, including non-power-of-two sizes via identity padding
-    and hybrid XLA outer stages."""
-    if benes.route(np.array([1, 0], dtype=np.int64)) is None:
-        pytest.skip("native router unavailable")
-    monkeypatch.setenv("GT4PY_TPU_BENES_INTERPRET", "1")
-    rng = np.random.default_rng(P)
-    sigma = rng.permutation(P).astype(np.int64)
-    keys = np.empty(P, dtype=np.int64)
-    keys[sigma] = np.arange(P)
-    keys = keys.astype(np.int32)
-    x_np = rng.random(P).astype(np.float32)
-    got = benes.permute(jnp.asarray(x_np), keys)
-    assert got is not None
-    assert np.array_equal(np.asarray(got), x_np[sigma])
-
-
-def test_benes_declines_gracefully():
-    # non-32-bit dtypes -> None (sort fallback handles them)
-    assert benes.permute(jnp.zeros(256, jnp.float64), np.arange(256)) is None
-    assert benes.permute(jnp.zeros(256, jnp.bfloat16), np.arange(256)) is None
-    # 2D -> None
-    assert benes.permute(jnp.zeros((16, 16), jnp.float32), np.arange(256)) is None
-
-
-@pytest.mark.parametrize("dtype", [np.int32, np.uint32])
-def test_benes_int32_bitcast_rides_network(dtype, monkeypatch):
-    """i32/u32 arrays permute through the f32 network via bitcasts.
-    Every stage is a select/rotate (no arithmetic), so arbitrary bit
-    patterns -- including ones aliasing f32 NaN payloads and +-inf --
-    must survive EXACTLY."""
-    if benes.route(np.array([1, 0], dtype=np.int64)) is None:
-        pytest.skip("native router unavailable")
-    monkeypatch.setenv("GT4PY_TPU_BENES_INTERPRET", "1")
-    P = 4096
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.uint32])
+def test_static_permutation_exact(P, dtype):
+    """The permutation executor moves values only: arbitrary bit
+    patterns (NaN payloads, +-inf, -0.0, all-ones) survive exactly, at
+    power-of-two and other sizes."""
     rng = np.random.default_rng(P)
     sigma = rng.permutation(P).astype(np.int64)
     keys = np.empty(P, dtype=np.int64)
     keys[sigma] = np.arange(P)
     x_np = rng.integers(0, 2**32, P, dtype=np.uint64).astype(np.uint32)
-    # adversarial patterns: sNaN/qNaN payloads, +-inf, -0.0, all-ones
     x_np[:6] = np.array(
         [0x7F800001, 0x7FC00000, 0x7F800000, 0xFF800000, 0x80000000, 0xFFFFFFFF],
         dtype=np.uint32,
     )
     x_np = x_np.view(dtype)
-    got = benes.permute(jnp.asarray(x_np), keys.astype(np.int32))
-    assert got is not None and got.dtype == dtype
-    assert np.array_equal(np.asarray(got), x_np[sigma])
+    got = sr._permute(jnp.asarray(x_np), keys.astype(np.int32))
+    assert got.dtype == dtype
+    assert np.array_equal(np.asarray(got).view(np.uint32), x_np[sigma].view(np.uint32))
 
 
 def test_middle_axis_gather():

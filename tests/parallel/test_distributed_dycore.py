@@ -33,7 +33,7 @@ def test_distributed_step_matches_single_device():
     }
 
     # ---- single device: periodic halo-padded buffers ---- #
-    single = MiniDycore(NI, NJ, NK, dtype=np.float64, backend="jax", aligned=False)
+    single = MiniDycore(NI, NJ, NK, dtype=np.float64, backend="jax")
     shape = single.field_shape()
     state = {}
     for name, arr in fields.items():
@@ -51,7 +51,7 @@ def test_distributed_step_matches_single_device():
     u_single = np.asarray(out_single["u"])[:, h : h + NI, h : h + NJ]
 
     # ---- distributed: shard_map with ppermute halo exchange ---- #
-    local = MiniDycore(ni_l, nj_l, NK, dtype=np.float64, backend="jax", aligned=False)
+    local = MiniDycore(ni_l, nj_l, NK, dtype=np.float64, backend="jax")
     local_step = local.step_fn(fill_halos=False)
 
     field_names = tuple(fields)
@@ -83,7 +83,7 @@ def test_full_dycore_step_runs():
 
     from gt4py_tpu.models.full_dycore import FullDycore
 
-    model = FullDycore(16, 16, 4, dtype=np.float64, backend="jax", aligned=False)
+    model = FullDycore(16, 16, 4, dtype=np.float64, backend="jax")
     state = {k: jnp.asarray(v) for k, v in model.init_state().items()}
     step = jax.jit(model.step_fn())
     out = step(state)

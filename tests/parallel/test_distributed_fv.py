@@ -28,7 +28,7 @@ def test_distributed_fv_matches_single_device():
     cy = 0.4 * (rng.random((NK, NI, NJ)) - 0.5)
 
     # single device, periodic product path
-    single = FvAdvection(NI, NJ, NK, dtype=np.float64, backend="jax", aligned=False)
+    single = FvAdvection(NI, NJ, NK, dtype=np.float64, backend="jax")
     shape = single.field_shape()
 
     def embed(a):
@@ -41,7 +41,7 @@ def test_distributed_fv_matches_single_device():
     q_single = np.asarray(out1)[:, h : h + NI, h : h + NJ]
 
     # sharded: ppermute halo exchange + non-periodic fused local step
-    local = FvAdvection(ni_l, nj_l, NK, dtype=np.float64, backend="jax", aligned=False)
+    local = FvAdvection(ni_l, nj_l, NK, dtype=np.float64, backend="jax")
     lstep = local.local_step_fn()
 
     def local_fields_step(**kw):

@@ -23,13 +23,13 @@ def test_distributed_shallow_water_matches_single_device():
     ni_l, nj_l = NI // px, NJ // py
     h = ShallowWater.HALO
 
-    single = ShallowWater(NI, NJ, NK, dtype=np.float64, backend="jax", aligned=False)
+    single = ShallowWater(NI, NJ, NK, dtype=np.float64, backend="jax")
     st = single.init_state(seed=5)
     step1 = jax.jit(single.step_fn())
     outs1 = step1(*(jnp.asarray(st[k]) for k in ("h", "u", "v")))
     interior1 = [np.asarray(o)[:, h : h + NI, h : h + NJ] for o in outs1]
 
-    local = ShallowWater(ni_l, nj_l, NK, dtype=np.float64, backend="jax", aligned=False)
+    local = ShallowWater(ni_l, nj_l, NK, dtype=np.float64, backend="jax")
     lstep = local.local_step_fn()
 
     def local_fields_step(**kw):

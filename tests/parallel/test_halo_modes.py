@@ -133,7 +133,7 @@ def test_overlapped_step_matches_plain(periodic, boundary):
     }
     field_names = tuple(fields)
 
-    local = MiniDycore(ni_l, nj_l, NK, dtype=np.float64, backend="jax", aligned=False)
+    local = MiniDycore(ni_l, nj_l, NK, dtype=np.float64, backend="jax")
     local_step = local.step_fn(fill_halos=False)
 
     def local_fields_step(**kw):
@@ -200,7 +200,7 @@ def test_extended_state_round_trip_and_step():
     }
     field_names = tuple(fields)
 
-    local = MiniDycore(ni_l, nj_l, NK, dtype=np.float64, backend="jax", aligned=False)
+    local = MiniDycore(ni_l, nj_l, NK, dtype=np.float64, backend="jax")
     local_step = local.step_fn(fill_halos=False)
 
     def local_fields_step(**kw):

@@ -1,8 +1,7 @@
 """bf16 WIRE format for halo exchange (VERDICT r4 #6).
 
-The r4 finding: bf16 cannot beat f32 on v5e's compute-bound fused
-kernels -- its value is memory capacity and DISTRIBUTED HALO BYTES.
-This file substantiates the second half: ``wire_dtype=bfloat16`` casts
+bf16's value here is memory capacity and DISTRIBUTED HALO BYTES.
+This file substantiates the second: ``wire_dtype=bfloat16`` casts
 only the exchanged strips (interior compute stays f32), halving the
 ICI/DCN payload per exchange (halo_comm_bytes accounting), with halo
 values rounding ONCE.  Reference counterpart: none (the reference is

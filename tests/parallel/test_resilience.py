@@ -37,7 +37,7 @@ def _step(state):
 
 
 def test_transient_classifier():
-    assert is_transient_error(RuntimeError("UNAVAILABLE: TPU gone"))
+    assert is_transient_error(RuntimeError("UNAVAILABLE: device gone"))
     assert is_transient_error(RuntimeError("FAILED_PRECONDITION: readback"))
     assert not is_transient_error(RuntimeError("some real bug"))
     assert not is_transient_error(ValueError("UNAVAILABLE"))  # wrong class

@@ -1,5 +1,5 @@
 """Sharded checkpointing on the virtual 8-device mesh: each device's
-shard is its own file (no gather -- the TPU-native analog of orbax's
+shard is its own file (no gather -- the analog of orbax's
 per-host checkpoint layout), manifest-last crash consistency, async
 write handles, bf16 payloads, and re-sharded restore."""
 

@@ -2,7 +2,7 @@
 direction in tach.toml:10-40: eve -> nothing; _core -> eve; storage ->
 {_core, eve}; cartesian/next -> {_core, eve, storage}).
 
-Our DAG (TPU-first collapse; next -> cartesian is the deliberate bridge
+Our DAG (a collapse; next -> cartesian is the deliberate bridge
 to the shared kernel planner, parallel is a low-level distribution
 primitive layer under next):
 

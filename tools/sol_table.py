@@ -1,26 +1,19 @@
-"""Analytic speed-of-light table for the bench kernels (VERDICT r4 #4).
+"""Analytic speed-of-light table for the bench kernels.
 
 For every bench workload: flops/pt and bytes/pt from the IR
-(analysis.estimate_flops_bytes), model floor
-``max(bytes / BW_eff, flops / VPU_rate)`` per step, and % attained
-against the measured times.  Run on any host (no chip needed -- the
-model is IR-side); paste the table into docs/performance.md.
+(analysis.estimate_flops_bytes), the model floor
+``max(bytes / peak_bw, flops / peak_f32)`` per step at 512^2 x 80 f32, and,
+given a ``bench.py`` JSON line, the attained share of that floor.  The
+model is IR-side: the tool traces nothing on a device and pins the CPU.
 
-Hardware constants (documented):
-- BW = 819 GB/s: NOMINAL v5e HBM bandwidth -- the true hardware bound,
-  which is what "speed of light" means.  Empirical context (chip,
-  r5 session, slope-timed): XLA elementwise add streams ~1000 GB/s
-  apparent (loop-carried fusion inflates it), a 3-operand XLA chain
-  ~282 GB/s, a minimal pallas kernel ~309 GB/s -- "effective" BW is
-  pattern-dependent, so attained-% is reported against nominal.
-- VPU_RATE = 3.9e12 weighted lane-ops/s: 8x128 lanes x ~940 MHz x 4
-  ALU issue (public v5e core figures); division/transcendentals are
-  folded into flops/pt by the IR weights, FMA pairing is not (the
-  weights count MUL and ADD separately), so this is a soft ceiling.
+Peaks come from ``PEAKS``, keyed by the ``device_kind`` JAX reports; the
+device is read from the bench JSON or given with ``--device-kind``.  A
+device not in the table is an error.
 
-Usage: /opt/venv/bin/python tools/sol_table.py [measured.json]
+Usage: python tools/sol_table.py [--device-kind KIND] [bench.json]
 """
 
+import argparse
 import json
 import sys
 
@@ -28,8 +21,25 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 import numpy as np
 
-BW_EFF = 819e9
-VPU_RATE = 3.9e12
+#: Published peaks by ``jax.devices()[0].device_kind``: device-memory
+#: bandwidth (B/s) and float32 rate outside the tensor cores (FLOP/s).
+#: Source: NVIDIA H100 Tensor Core GPU data sheet, SXM part (3.35 TB/s
+#: HBM3, 67 TFLOP/s FP32); both assume the 700 W power limit.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"bw": 3.35e12, "f32": 67e12},
+}
+
+
+def peaks_for(device_kind: str) -> dict:
+    """Peak table entry of ``device_kind``; raises for an unknown device."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device kind {device_kind!r}; "
+            f"known: {sorted(PEAKS)}"
+        ) from None
+
 
 NI = NJ = 512
 NK = 80
@@ -70,11 +80,21 @@ def stencil_rows():
 def main():
     from gt4py_tpu.cartesian.analysis import estimate_flops_bytes
 
-    measured = {}
-    if len(sys.argv) > 1:
-        measured = json.load(open(sys.argv[1]))
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("bench_json", nargs="?", help="a bench.py output line")
+    ap.add_argument("--device-kind", help="device kind when no JSON is given")
+    args = ap.parse_args()
+    measured, kind = {}, args.device_kind
+    if args.bench_json:
+        with open(args.bench_json) as f:
+            res = json.loads(f.read().strip().splitlines()[-1])
+        measured, kind = res.get("extra", {}), res["device"]["kind"]
+    if kind is None:
+        ap.error("give a bench JSON or --device-kind")
+    peak = peaks_for(kind)
 
     points = NI * NJ * NK
+    print(f"# {kind}: {peak['bw'] / 1e12:.2f} TB/s, {peak['f32'] / 1e12:.0f} TFLOP/s f32")
     print(f"{'workload':34s} {'flops/pt':>9s} {'bytes/pt':>9s} "
           f"{'flop floor':>11s} {'byte floor':>11s} {'model floor':>12s} bound")
     for name, stencils in stencil_rows().items():
@@ -83,12 +103,24 @@ def main():
             f, b = estimate_flops_bytes(st.analysis.stencil, NK)
             fl += f
             by += b
-        t_flop = fl * points / VPU_RATE * 1e3
-        t_byte = by * points / BW_EFF * 1e3
+        t_flop = fl * points / peak["f32"] * 1e3
+        t_byte = by * points / peak["bw"] * 1e3
         floor = max(t_flop, t_byte)
         bound = "compute" if t_flop > t_byte else "traffic"
-        print(f"{name:34s} {fl:9.1f} {by:9.1f} {t_flop:10.2f}ms "
-              f"{t_byte:10.2f}ms {floor:11.2f}ms {bound}")
+        line = (f"{name:34s} {fl:9.1f} {by:9.1f} {t_flop:10.3f}ms "
+                f"{t_byte:10.3f}ms {floor:11.3f}ms {bound}")
+        key = ROW_KEYS.get(name)
+        if key in measured:
+            line += f"  attained {floor / measured[key]:.1%}"
+        print(line)
+
+
+#: bench.py ``extra`` key of each workload's measured step time (ms)
+ROW_KEYS = {
+    "dycore (hdiff + vadv_update)": "dycore_512_ms",
+    "FVTP2D step": "fv_512_ms",
+    "shallow water step": "shallow_water_512_ms",
+}
 
 
 if __name__ == "__main__":
